@@ -1,0 +1,79 @@
+"""Carry weights from the JAX package's parameter tree into the port.
+
+The JAX tree arrives as numpy arrays (``jax.tree.map(np.asarray, params)``).
+bf16 and fp8 arrays there are ``ml_dtypes`` types, which torch cannot take,
+so they cross as raw bits: bf16 over ``uint16``, e4m3/e5m2 over ``uint8``,
+then a ``view`` to the torch type. The dtype is recognised by name, so the
+port needs no ``ml_dtypes``. Every value arrives bit for bit.
+
+The reference stacks layer params on a leading ``n_super`` axis
+(``init_params``' ``vmap``); :func:`params_from_numpy` unstacks them into
+the port's list of per-layer dicts.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+# dtype name → (numpy bit-carrier, torch type)
+_BIT_TYPES = {
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
+
+
+def to_torch(a, device=None) -> torch.Tensor:
+    """One numpy array → a torch tensor with the same bits."""
+    a = np.ascontiguousarray(np.asarray(a))
+    name = str(a.dtype)
+    if name in _BIT_TYPES:
+        carrier, ttype = _BIT_TYPES[name]
+        t = torch.from_numpy(a.view(carrier).copy()).view(ttype)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device) if device is not None else t
+
+
+def to_numpy_bits(t: torch.Tensor) -> np.ndarray:
+    """A torch tensor → numpy; bf16/fp8 come back as their raw bit
+    carriers (``uint16`` / ``uint8``), everything else as itself."""
+    t = t.detach().cpu().contiguous()
+    for carrier, ttype in _BIT_TYPES.values():
+        if t.dtype == ttype:
+            bits = torch.int16 if carrier is np.uint16 else torch.uint8
+            return t.view(bits).numpy().view(carrier)
+    return t.numpy()
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return to_torch(tree, device)
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
+    """The JAX param tree (numpy leaves) → the port's params.
+
+    ``tree["layers"]["b0"]`` holds the ``attn_dense`` block stacked over
+    ``cfg.num_superlayers``; it becomes ``params["layers"][i]``."""
+    if cfg.superlayer_pattern != ("attn_dense",):
+        raise NotImplementedError(
+            f"bridge for block pattern {cfg.superlayer_pattern}: only "
+            "attn_dense stacks are ported so far")
+    block = tree["layers"]["b0"]
+    n = cfg.num_superlayers
+
+    def layer(i, sub):
+        if isinstance(sub, dict):
+            return {k: layer(i, v) for k, v in sub.items()}
+        return to_torch(np.asarray(sub)[i], device)
+
+    return {
+        "embed": to_torch(tree["embed"], device),
+        "head": to_torch(tree["head"], device),
+        "final_norm": to_torch(tree["final_norm"], device),
+        "layers": [layer(i, block) for i in range(n)],
+    }

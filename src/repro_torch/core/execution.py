@@ -1,0 +1,164 @@
+"""Execution policy and the matmul dispatcher (main-path part).
+
+Twin of ``repro/core/execution.py``: :class:`ExecutionPolicy` (precision ×
+sparsity × backend × block shapes × stream budget), :func:`parse_policy`,
+the policy scope, :func:`policy_from`, :func:`apply_policy` and
+:func:`matmul`, the dispatcher every linear layer routes through.
+
+Policy strings written for the JAX package parse unchanged: ``pallas``
+names the ``hopper`` backend and ``jnp`` the ``torch`` backend. Not in
+this slice: ``resolve_policy`` (the occupancy advisor), the overlap
+planner, the block-shape cache, packed 2:4 weights and the module-level
+default setters.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import registry
+
+PRECISIONS = ("bf16", "fp8")
+SPARSITIES = ("dense", "sparse24")
+
+# JAX backend names → the port's backends.
+BACKEND_ALIASES = {"pallas": "hopper", "jnp": "torch"}
+_LATER = {"pallas_sparse24": registry.SPARSE24_TODO}
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPolicy:
+    """How a matmul (and the workload around it) should execute."""
+    precision: str = "bf16"             # bf16 | fp8
+    sparsity: str = "dense"             # dense | sparse24
+    backend: str = "torch"              # registry name
+    block_m: Optional[int] = None
+    block_n: Optional[int] = None
+    block_k: Optional[int] = None
+    streams: int = 1
+    overlap: bool = True
+    rationale: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"precision {self.precision!r} not in "
+                             f"{PRECISIONS}")
+        if self.sparsity not in SPARSITIES:
+            raise ValueError(f"sparsity {self.sparsity!r} not in "
+                             f"{SPARSITIES}")
+
+    @property
+    def blocks(self) -> Dict[str, Optional[int]]:
+        return {"bm": self.block_m, "bn": self.block_n, "bk": self.block_k}
+
+    def spec(self) -> str:
+        """Compact string form, parseable by :func:`parse_policy`."""
+        return f"{self.precision}:{self.sparsity}:{self.backend}"
+
+    def describe(self) -> str:
+        base = self.spec() + f" streams={self.streams}"
+        if not self.overlap:
+            base += " no_overlap"
+        if self.rationale:
+            base += "\n  - " + "\n  - ".join(self.rationale)
+        return base
+
+
+def parse_policy(spec: str, base: Optional[ExecutionPolicy] = None
+                 ) -> ExecutionPolicy:
+    """Parse ``"fp8:dense:hopper"``-style specs (parts in any order, any
+    subset): precision, sparsity, backend name (or its JAX alias),
+    ``NxNxN`` blocks, ``streams=N``, ``overlap``/``no_overlap``."""
+    pol = base or ExecutionPolicy()
+    updates: Dict[str, Any] = {}
+    for tok in filter(None, (t.strip() for t in spec.split(":"))):
+        tok = BACKEND_ALIASES.get(tok, tok)
+        if tok in PRECISIONS:
+            updates["precision"] = tok
+        elif tok in SPARSITIES:
+            updates["sparsity"] = tok
+        elif tok in registry.available_backends():
+            updates["backend"] = tok
+        elif tok in _LATER:
+            raise NotImplementedError(f"backend {tok!r}: {_LATER[tok]}")
+        elif tok.startswith("streams="):
+            updates["streams"] = int(tok.split("=", 1)[1])
+        elif tok in ("overlap", "no_overlap"):
+            updates["overlap"] = tok == "overlap"
+        elif "x" in tok:
+            bm, bn, bk = (int(v) for v in tok.split("x"))
+            updates.update(block_m=bm, block_n=bn, block_k=bk)
+        else:
+            raise ValueError(
+                f"unrecognized policy token {tok!r} in {spec!r} (want one of "
+                f"{PRECISIONS + SPARSITIES}, a backend "
+                f"{registry.available_backends()}, MxNxK blocks, or "
+                f"streams=N)")
+    return dataclasses.replace(pol, **updates)
+
+
+# the backend of a call site with no policy and ``use_pallas`` off
+DEFAULT_BACKEND = "torch"
+
+# Partition-local policy scope (context-var based, as in the reference).
+_scope_policy: "contextvars.ContextVar[Optional[ExecutionPolicy]]" = \
+    contextvars.ContextVar("repro_torch_policy_scope", default=None)
+
+
+@contextlib.contextmanager
+def policy_scope(policy: Optional[ExecutionPolicy]):
+    """Make ``policy`` the contextual default for the enclosed block.
+    Precedence: explicit ``rt.policy`` > this scope > derived switches."""
+    tok = _scope_policy.set(policy)
+    try:
+        yield policy
+    finally:
+        _scope_policy.reset(tok)
+
+
+def get_default_policy() -> ExecutionPolicy:
+    scoped = _scope_policy.get()
+    return scoped if scoped is not None \
+        else ExecutionPolicy(backend=DEFAULT_BACKEND)
+
+
+def policy_from(cfg, rt) -> ExecutionPolicy:
+    """Effective policy for a model call site: explicit ``rt.policy`` >
+    :func:`policy_scope` > derived from ``cfg.precision``,
+    ``cfg.sparsity_24`` and ``rt.use_pallas``."""
+    pol = getattr(rt, "policy", None)
+    if pol is not None:
+        return pol
+    scoped = _scope_policy.get()
+    if scoped is not None:
+        return scoped
+    return ExecutionPolicy(
+        precision=cfg.precision,
+        sparsity="sparse24" if cfg.sparsity_24 else "dense",
+        backend="hopper" if rt.use_pallas else DEFAULT_BACKEND)
+
+
+def apply_policy(cfg, rt, policy: ExecutionPolicy):
+    """Fold a policy back into (cfg, rt). ``rt.use_pallas`` is left alone:
+    it also gates the flash-attention kernel."""
+    cfg = dataclasses.replace(
+        cfg, precision=policy.precision,
+        sparsity_24=policy.sparsity == "sparse24")
+    rt = dataclasses.replace(rt, policy=policy)
+    return cfg, rt
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor,
+           policy: Optional[ExecutionPolicy] = None, *,
+           out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``x @ w`` through the policy's backend. FP8 applies to 2-D weights;
+    leading dims of ``x`` are preserved."""
+    pol = policy or get_default_policy()
+    be = registry.get_backend(pol.backend)
+    if pol.precision == "fp8" and w.dim() == 2:
+        return be.fp8(x, w, out_dtype=out_dtype, **pol.blocks)
+    return be.dense(x, w, out_dtype=out_dtype, **pol.blocks)

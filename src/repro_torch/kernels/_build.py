@@ -1,0 +1,118 @@
+"""Build the CUDA sources under ``csrc/`` at first use and load them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
+library, compiled by ``nvcc`` for ``sm_90a`` into ``build/repro_torch_kernels/``
+at the repository root. The file
+name carries a hash of the source and the flags, so an edited kernel is
+rebuilt and a stale library is never loaded. :func:`build` starts one
+``nvcc`` per source, all at once, and waits for them together.
+
+Pointers and the stream cross into C as ``ctypes.c_void_p``, integers as
+``ctypes.c_int``. Every C entry point returns ``cudaGetLastError()`` after
+its launch; :func:`check` raises on anything but 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("gemm", "flash_attention")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C signatures: (name, argument types). Every entry returns an int status.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "gemm": {"repro_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)},
+    "flash_attention": {
+        "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _P)},
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# nvcc's stderr per source (ptxas register / shared-memory report) and the
+# wall seconds each build took; both filled by build().
+LOGS: Dict[str, str] = {}
+SECONDS: Dict[str, float] = {}
+
+
+def build_dir() -> Path:
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit (set CUDA_HOME)")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{name}_{h}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile every missing library in ``names`` (default: all sources),
+    one ``nvcc`` process each, started together. Raises with nvcc's
+    stderr if any build fails."""
+    names = tuple(names or SOURCES)
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       tmp, target, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, target, t0) in procs.items():
+        stdout, stderr = proc.communicate()
+        SECONDS[name] = time.perf_counter() - t0
+        LOGS[name] = stdout + stderr
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for csrc/{name}.cu "
+                          f"(exit {proc.returncode}):\n{stdout}{stderr}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _target(name) for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = build([name])[name]
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")

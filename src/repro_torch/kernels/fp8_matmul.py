@@ -1,0 +1,68 @@
+"""Kernel A: the tiled GEMM behind every linear layer (``csrc/gemm.cu``).
+
+Port of ``repro/kernels/fp8_matmul.py::fp8_matmul_pallas``: (M, K) × (K, N)
+with f32 accumulation, undescaled output in f32 or bf16. Operands are both
+bf16, both e4m3 or both e5m2. The CUDA kernel masks ragged M, N and K
+itself, so unlike the TPU kernel it takes every shape.
+
+``fp8_matmul`` launches the kernel for CUDA tensors and raises on what it
+does not take; for CPU tensors it computes :func:`fp8_matmul_plain`, the
+kernel's plain PyTorch twin (f32 operands, f32 accumulation).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+# Launches of the CUDA kernel since the last reset (chip_smoke.py reads it).
+LAUNCHES = 0
+
+_IN_TYPES = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
+_OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fp8_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: every bf16/fp8 value is
+    exact in f32, so this is the exactly-rounded f32 accumulation."""
+    return torch.matmul(x.float(), w.float()).to(out_dtype)
+
+
+def _aligned(t: torch.Tensor, row_elems: int) -> bool:
+    return (t.data_ptr() % 16 == 0
+            and (row_elems * t.element_size()) % 16 == 0)
+
+
+def fp8_matmul(x: torch.Tensor, w: torch.Tensor,
+               out_dtype=torch.float32) -> torch.Tensor:
+    """x (M, K) × w (K, N) → (M, N) in ``out_dtype`` (f32 or bf16)."""
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return fp8_matmul_plain(x, w, out_dtype)
+    if x.device != w.device or x.device.type != "cuda":
+        raise ValueError(f"operands on {x.device} and {w.device}: the GEMM "
+                         "kernel needs both on one CUDA device")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"want (M, K) x (K, N), got {tuple(x.shape)} x "
+                         f"{tuple(w.shape)}")
+    if x.dtype != w.dtype or x.dtype not in _IN_TYPES:
+        raise TypeError(f"operand types {x.dtype} x {w.dtype}: the kernel "
+                        "takes bf16 x bf16, e4m3 x e4m3 or e5m2 x e5m2")
+    if out_dtype not in _OUT_TYPES:
+        raise TypeError(f"out_dtype {out_dtype}: want float32 or bfloat16")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("the GEMM kernel takes contiguous row-major operands")
+    (M, K), N = x.shape, w.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    lib = _build.load("gemm")
+    status = lib.repro_gemm(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+        _IN_TYPES[x.dtype], _OUT_TYPES[out_dtype],
+        int(_aligned(x, K)), int(_aligned(w, N)),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "repro_gemm")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out

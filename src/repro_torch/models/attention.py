@@ -1,0 +1,116 @@
+"""Attention: the chunked online-softmax prefill path and the block.
+
+Twin of ``repro/models/attention.py``. ``chunked_attention`` is the plain
+prefill path (blocked online softmax, fully masked blocks skipped);
+``attention_block`` switches to the flash-attention kernel when
+``rt.use_pallas`` is set, as the reference does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import DEFAULT_RT, RuntimeCfg, apply_rope, dense
+
+NEG_INF = -1e30
+
+
+def _expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, kv, hd) -> (B, S, h, hd) by broadcast (GQA)."""
+    b, s, kv, hd = k.shape
+    if kv == num_heads:
+        return k
+    groups = num_heads // kv
+    return k[:, :, :, None, :].expand(b, s, kv, groups, hd).reshape(
+        b, s, num_heads, hd)
+
+
+def _attn_block(q, k, v, qpos0: int, kpos0: int, *, causal: bool,
+                window: int, scale: float):
+    """One (q-chunk, kv-chunk) block → (scores max, exp sums, acc)."""
+    cq, ck = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    qi = qpos0 + torch.arange(cq, device=q.device)
+    ki = kpos0 + torch.arange(ck, device=q.device)
+    mask = torch.ones((cq, ck), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi[:, None] >= ki[None, :]
+    if window:
+        mask &= (qi[:, None] - ki[None, :]) < window
+    s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)                                         # (B, h, cq)
+    p = torch.exp(s - m[..., None])
+    p = torch.where((m > NEG_INF / 2)[..., None], p, torch.zeros_like(p))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p, v.float())
+    return m, l, acc
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      rt: RuntimeCfg = DEFAULT_RT,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Blocked online-softmax attention. q: (B, Sq, h, hd); k, v:
+    (B, Skv, kv_heads, hd). Returns (B, Sq, h, hd)."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    k = _expand_kv(k, h)
+    v = _expand_kv(v, h)
+    scale = 1.0 / math.sqrt(hd)
+    cq, ck = min(rt.chunk_q, sq), min(rt.chunk_kv, skv)
+    nq, nk = -(-sq // cq), -(-skv // ck)
+    assert sq % cq == 0 and skv % ck == 0, (sq, cq, skv, ck)
+
+    outs = []
+    for i in range(nq):
+        qi = q[:, i * cq:(i + 1) * cq]
+        qpos0 = q_offset + i * cq
+        j_hi = nk if not causal else min(nk, (qpos0 + cq + ck - 1) // ck)
+        j_lo = max(0, (qpos0 - window) // ck) if window else 0
+        m = torch.full((b, h, cq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, cq, hd), dtype=torch.float32,
+                          device=q.device)
+        for j in range(j_lo, j_hi):
+            bm, bl, bacc = _attn_block(
+                qi, k[:, j * ck:(j + 1) * ck], v[:, j * ck:(j + 1) * ck],
+                qpos0, j * ck, causal=causal, window=window, scale=scale)
+            m_new = torch.maximum(m, bm)
+            c1, c2 = torch.exp(m - m_new), torch.exp(bm - m_new)
+            l = l * c1 + bl * c2
+            acc = acc * c1[..., None] + bacc * c2[..., None]
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]      # (B, h, cq, hd)
+        outs.append(out.transpose(1, 2))                      # (B, cq, h, hd)
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                    cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT, *,
+                    window: int = 0,
+                    positions: Optional[torch.Tensor] = None,
+                    return_kv: bool = False):
+    """Projections + RoPE + attention. x: (B, S, d)."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q = dense(x, p["w_q"], cfg, rt, "q").reshape(b, s, h, hd)
+    k = dense(x, p["w_k"], cfg, rt, "k").reshape(b, s, kv, hd)
+    v = dense(x, p["w_v"], cfg, rt, "v").reshape(b, s, kv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if rt.use_pallas and not window:
+        from repro_torch.kernels import ops
+        o = ops.flash_attention(q, k, v, causal=True)
+    else:
+        o = chunked_attention(q, k, v, causal=True, window=window, rt=rt)
+    o = o.reshape(b, s, h * hd)
+    out = dense(o, p["w_o"], cfg, rt, "o")
+    if return_kv:
+        return out, (k, v)
+    return out

@@ -1,0 +1,100 @@
+"""Shared building blocks: norms, RoPE, the policy-routed linear, MLP.
+
+Twin of ``repro/models/layers.py``. ``dense()`` resolves the execution
+policy and dispatches through the matmul backend registry; every linear
+layer of the model goes through it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import execution as ex
+from repro_torch.kernels import registry
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeCfg:
+    """Execution knobs threaded through model forward functions.
+
+    ``use_pallas`` keeps the reference's name: it routes prefill attention
+    through the flash-attention kernel (and, with no explicit policy,
+    every linear through the ``hopper`` backend)."""
+    chunk_q: int = 1024
+    chunk_kv: int = 1024
+    use_pallas: bool = False
+    act_dtype: Any = torch.bfloat16
+    # Explicit execution policy; wins over cfg.precision / use_pallas.
+    policy: Any = None
+
+
+DEFAULT_RT = RuntimeCfg()
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, cfg: ArchConfig,
+          rt: RuntimeCfg = DEFAULT_RT, name: str = "") -> torch.Tensor:
+    """``x @ w`` routed through the resolved execution policy."""
+    pol = ex.policy_from(cfg, rt)
+    if pol.sparsity == "sparse24":
+        raise NotImplementedError(registry.SPARSE24_TODO)
+    return ex.matmul(x, w, pol, out_dtype=rt.act_dtype)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * (1.0 + gamma.float())
+    return out.to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, h, hd); positions: (S,) or broadcastable (split halves)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)              # (hd/2,)
+    angles = positions[..., :, None].float() * freqs           # (S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]                   # (S, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_tokens(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def lm_logits(h: torch.Tensor, head_w: torch.Tensor, vocab_size: int,
+              policy: Any = None) -> torch.Tensor:
+    """Project to the (padded) vocab in f32; padding logits are -1e30.
+    The head stays on the policy's bf16 dense path whatever its precision."""
+    pol = policy or ex.get_default_policy()
+    logits = ex.matmul(
+        h, head_w, dataclasses.replace(pol, precision="bf16",
+                                       sparsity="dense"),
+        out_dtype=torch.float32)
+    vp = head_w.shape[-1]
+    if vp != vocab_size:
+        mask = torch.arange(vp, device=logits.device) < vocab_size
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    return logits
+
+
+def swiglu_mlp(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
+               rt: RuntimeCfg = DEFAULT_RT) -> torch.Tensor:
+    gate = dense(x, p["w_gate"], cfg, rt, "mlp_gate")
+    up = dense(x, p["w_up"], cfg, rt, "mlp_up")
+    h = F.silu(gate.float()).to(x.dtype) * up
+    return dense(h, p["w_down"], cfg, rt, "mlp_down")

@@ -1,0 +1,60 @@
+"""The weight bridge carries JAX arrays into the PyTorch port bit for bit."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced
+from repro.models import init_params
+from repro_torch import bridge
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16,
+                                   jnp.float8_e4m3fn, jnp.float8_e5m2])
+def test_array_round_trip_is_byte_exact(dtype):
+    a = np.random.default_rng(0).normal(size=(7, 33)).astype(np.float32) * 8
+    src = np.asarray(jnp.asarray(a).astype(dtype))
+    t = bridge.to_torch(src)
+    assert t.shape == src.shape
+    assert str(t.dtype).split(".")[-1] == str(src.dtype)
+    back = bridge.to_numpy_bits(t)
+    want = src.view(np.uint8 if src.dtype.itemsize == 1 else
+                    np.uint16 if src.dtype.itemsize == 2 else np.uint32)
+    assert back.view(want.dtype).tobytes() == want.tobytes()
+
+
+def test_param_tree_unstacks_layers_bit_for_bit():
+    cfg = get_reduced("llama3-8b")
+    params = init_params(jax.random.PRNGKey(0), cfg)
+    tree = jax.tree.map(np.asarray, params)
+    port = bridge.params_from_numpy(tree, cfg)
+    assert len(port["layers"]) == cfg.num_layers
+    assert port["embed"].dtype == torch.bfloat16
+    assert port["final_norm"].dtype == torch.float32
+    block = tree["layers"]["b0"]
+    for i, layer in enumerate(port["layers"]):
+        for group, leaves in (("attn", layer["attn"]), ("mlp", layer["mlp"])):
+            for name, t in leaves.items():
+                want = np.asarray(block[group][name])[i]
+                assert bridge.to_numpy_bits(t).tobytes() == \
+                    want.view(np.uint16).tobytes(), (i, group, name)
+        for norm in ("norm1", "norm2"):
+            np.testing.assert_array_equal(layer[norm].numpy(),
+                                          np.asarray(block[norm])[i])
+    assert bridge.to_numpy_bits(port["head"]).tobytes() == \
+        tree["head"].view(np.uint16).tobytes()
+
+
+def test_configs_are_copies_of_the_reference():
+    from repro.configs import ARCHS, REDUCED
+    from repro_torch.configs import ARCHS as T_ARCHS, REDUCED as T_REDUCED
+    assert sorted(ARCHS) == sorted(T_ARCHS)
+    for name in ARCHS:
+        assert dataclasses_equal(ARCHS[name], T_ARCHS[name])
+        assert dataclasses_equal(REDUCED[name], T_REDUCED[name])
+
+
+def dataclasses_equal(a, b) -> bool:
+    import dataclasses
+    return dataclasses.asdict(a) == dataclasses.asdict(b)
