@@ -8,7 +8,10 @@ port needs no ``ml_dtypes``. Every value arrives bit for bit.
 
 The reference stacks layer params on a leading ``n_super`` axis
 (``init_params``' ``vmap``); :func:`params_from_numpy` unstacks them into
-the port's list of per-layer dicts.
+the port's list of per-layer dicts. It also takes the tree that the
+reference's ``pack_model_params`` returns, whose packed leaves are
+``PackedWeight`` named tuples of stacked values (n_super, K/2, N) and meta
+(n_super, K/8, N) uint8: each becomes one port ``PackedWeight`` per layer.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.core.execution import PackedWeight
 
 # dtype name → (numpy bit-carrier, torch type)
 _BIT_TYPES = {
@@ -69,6 +74,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
     def layer(i, sub):
         if isinstance(sub, dict):
             return {k: layer(i, v) for k, v in sub.items()}
+        if isinstance(sub, tuple) and hasattr(sub, "meta"):   # packed 2:4
+            return PackedWeight(to_torch(np.asarray(sub.values)[i], device),
+                                to_torch(np.asarray(sub.meta)[i], device))
         return to_torch(np.asarray(sub)[i], device)
 
     return {

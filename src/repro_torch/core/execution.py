@@ -2,32 +2,81 @@
 
 Twin of ``repro/core/execution.py``: :class:`ExecutionPolicy` (precision ×
 sparsity × backend × block shapes × stream budget), :func:`parse_policy`,
-the policy scope, :func:`policy_from`, :func:`apply_policy` and
+the policy scope, :func:`policy_from`, :func:`apply_policy`, the packed
+2:4 weight (:class:`PackedWeight`, :func:`pack_model_params`) and
 :func:`matmul`, the dispatcher every linear layer routes through.
 
 Policy strings written for the JAX package parse unchanged: ``pallas``
-names the ``hopper`` backend and ``jnp`` the ``torch`` backend. Not in
-this slice: ``resolve_policy`` (the occupancy advisor), the overlap
-planner, the block-shape cache, packed 2:4 weights and the module-level
-default setters.
+names the ``hopper`` backend, ``pallas_sparse24`` the ``hopper_sparse24``
+backend and ``jnp`` the ``torch`` backend. Not in this slice:
+``resolve_policy`` (the occupancy advisor), the overlap planner, the
+block-shape cache and the module-level default setters.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import sparsity as sp
 from repro_torch.kernels import registry
 
 PRECISIONS = ("bf16", "fp8")
 SPARSITIES = ("dense", "sparse24")
 
 # JAX backend names → the port's backends.
-BACKEND_ALIASES = {"pallas": "hopper", "jnp": "torch"}
-_LATER = {"pallas_sparse24": registry.SPARSE24_TODO}
+BACKEND_ALIASES = {"pallas": "hopper", "pallas_sparse24": "hopper_sparse24",
+                   "jnp": "torch"}
+
+
+# ---------------------------------------------------------------------------
+# Packed 2:4 weight (serving representation, consumed by backend.sparse24)
+# ---------------------------------------------------------------------------
+
+class PackedWeight(NamedTuple):
+    """2:4-compressed linear weight: values (K/2, N) + meta (K/8, N) uint8."""
+    values: torch.Tensor
+    meta: torch.Tensor
+
+    @property
+    def k(self) -> int:
+        return self.values.shape[0] * 2
+
+    @property
+    def n(self) -> int:
+        return self.values.shape[1]
+
+
+def pack_weight(w: torch.Tensor) -> PackedWeight:
+    return PackedWeight(*sp.pack_24(sp.prune_24(w)))
+
+
+def pack_model_params(params):
+    """Pre-pack every eligible linear weight to :class:`PackedWeight`.
+
+    The serving form of a sparse24 policy: prune and pack once at session
+    set-up, so decode streams packed bytes. Eligible leaves are the
+    ``dense()``-consumed projections (``w_*`` / ``out_proj``), 2-D, floating,
+    with K % 8 == 0. Embeddings, the LM head and norms stay dense, and so
+    does a leaf that is already packed. The port's tree keeps one dict per
+    layer in a list, so there is no stacked 3-D case."""
+    def maybe(key: str, v):
+        if isinstance(v, dict):
+            return {k: maybe(k, vv) for k, vv in v.items()}
+        if isinstance(v, list):
+            return [maybe(key, vv) for vv in v]
+        if not (key.startswith("w_") or key == "out_proj"):
+            return v
+        if not isinstance(v, torch.Tensor) or v.dim() != 2:
+            return v
+        if v.shape[0] % 8 or not v.is_floating_point():
+            return v
+        return pack_weight(v)
+
+    return {k: maybe(k, v) for k, v in params.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,8 +132,6 @@ def parse_policy(spec: str, base: Optional[ExecutionPolicy] = None
             updates["sparsity"] = tok
         elif tok in registry.available_backends():
             updates["backend"] = tok
-        elif tok in _LATER:
-            raise NotImplementedError(f"backend {tok!r}: {_LATER[tok]}")
         elif tok.startswith("streams="):
             updates["streams"] = int(tok.split("=", 1)[1])
         elif tok in ("overlap", "no_overlap"):
@@ -155,10 +202,15 @@ def apply_policy(cfg, rt, policy: ExecutionPolicy):
 def matmul(x: torch.Tensor, w: torch.Tensor,
            policy: Optional[ExecutionPolicy] = None, *,
            out_dtype=torch.bfloat16) -> torch.Tensor:
-    """``x @ w`` through the policy's backend. FP8 applies to 2-D weights;
-    leading dims of ``x`` are preserved."""
+    """``x @ w`` through the policy's backend. A :class:`PackedWeight` goes
+    to the backend's packed 2:4 GEMM whatever the precision, as in the
+    reference; FP8 applies to 2-D dense weights; leading dims of ``x`` are
+    preserved."""
     pol = policy or get_default_policy()
     be = registry.get_backend(pol.backend)
+    if isinstance(w, PackedWeight):
+        return be.sparse24(x, w.values, w.meta, out_dtype=out_dtype,
+                           **pol.blocks)
     if pol.precision == "fp8" and w.dim() == 2:
         return be.fp8(x, w, out_dtype=out_dtype, **pol.blocks)
     return be.dense(x, w, out_dtype=out_dtype, **pol.blocks)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, compiled by ``nvcc`` for ``sm_90a`` into ``build/repro_torch_kernels/``
-at the repository root. The file
-name carries a hash of the source and the flags, so an edited kernel is
-rebuilt and a stale library is never loaded. :func:`build` starts one
+at the repository root. The sources may include the headers
+``csrc/*.cuh``. The file name carries a hash of the source, every header
+and the flags, so an edited kernel or header is rebuilt and a stale
+library is never loaded. :func:`build` starts one
 ``nvcc`` per source, all at once, and waits for them together.
 
 Pointers and the stream cross into C as ``ctypes.c_void_p``, integers as
@@ -23,7 +24,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gemm", "flash_attention")
+SOURCES = ("gemm", "flash_attention", "sparse24_gemm", "block24_gemm")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +35,12 @@ SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _P)},
+    "sparse24_gemm": {
+        "repro_sparse24_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _P)},
+    "block24_gemm": {
+        "repro_block24_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -61,8 +68,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    h = h.hexdigest()[:16]
     return build_dir() / f"lib{name}_{h}.so"
 
 

@@ -5,11 +5,28 @@ import math
 
 import torch
 
+from repro_torch.core import sparsity as sp
+
 
 def fp8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
                    out_dtype=torch.float32) -> torch.Tensor:
     """(M, K) × (K, N) → f32 accumulation of f32-upcast operands."""
     return torch.matmul(x_q.float(), w_q.float()).to(out_dtype)
+
+
+def sparse24_matmul_ref(x: torch.Tensor, values: torch.Tensor,
+                        meta: torch.Tensor,
+                        out_dtype=torch.bfloat16) -> torch.Tensor:
+    return sp.sparse24_matmul_ref(x, values, meta, out_dtype=out_dtype)
+
+
+def block24_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor, kept_idx,
+                       block: int = 128,
+                       out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x (M, K_dense) × packed (K_dense/2, N), kept dense-K block list."""
+    cols = torch.cat([torch.arange(i * block, (i + 1) * block,
+                                   device=x.device) for i in kept_idx])
+    return (x[:, cols].float() @ w_packed.float()).to(out_dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,15 +6,20 @@ entry points with the same signatures:
   ``dense(x, w)``                   — bf16/f32 GEMM, f32 accumulation
   ``fp8(x, w)``                     — dynamic per-tensor-scaled FP8 GEMM
   ``fp8_qdot(x_q, w_q, xs, ws)``    — pre-quantized FP8 GEMM + descale
-  ``sparse24(x, values, meta)``     — packed 2:4 GEMM (a later slice)
+  ``sparse24(x, values, meta)``     — packed 2:4 GEMM
 
 Registered backends:
 
   ``ref``     plain f32 oracles
-  ``torch``   ``torch.matmul`` on f32-upcast operands (twin of ``jnp``)
-  ``hopper``  the hand-written CUDA GEMM (``csrc/gemm.cu``) for every CUDA
+  ``torch``   ``torch.matmul`` on f32-upcast operands (twin of ``jnp``);
+              its ``sparse24`` is the unpack-then-matmul oracle, as ``jnp``'s
+  ``hopper``  the hand-written CUDA GEMMs (``csrc/gemm.cu``, and
+              ``csrc/sparse24_gemm.cu`` for packed weights) for every CUDA
               tensor and every shape — there is no shape fallback; CPU
-              tensors take the kernel's plain version
+              tensors take the kernels' plain versions
+  ``hopper_sparse24``  ``hopper`` with the packed 2:4 GEMM as the primary
+              path: its ``dense`` entry prunes and packs a dense weight per
+              call (twin of ``pallas_sparse24``)
 
 ``x`` may carry leading batch dims; they are flattened into M. ``bm/bn/bk``
 are accepted for signature parity and ignored: the CUDA kernel picks its
@@ -28,10 +33,10 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from repro_torch.core import fp8 as fp8lib
+from repro_torch.core import sparsity as sp
 from repro_torch.kernels import fp8_matmul as fm
-
-SPARSE24_TODO = ("the packed 2:4 GEMM (sparse24_matmul_pallas) is ported in "
-                 "the sparse24 serving slice; this slice serves dense weights")
+from repro_torch.kernels import ref
+from repro_torch.kernels import sparse24_matmul as sm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,10 +75,6 @@ def _flatten_lead(x: torch.Tensor):
     return x.reshape(-1, x.shape[-1]), x.shape[:-1]
 
 
-def _no_sparse24(*args, **kw):
-    raise NotImplementedError(SPARSE24_TODO)
-
-
 # ---------------------------------------------------------------------------
 # ref — exact-f32 oracles
 # ---------------------------------------------------------------------------
@@ -102,9 +103,14 @@ def _ref_fp8_qdot(x_q, w_q, x_inv_scale=1.0, w_inv_scale=1.0, *,
     return out.to(out_dtype).reshape(*lead, w_q.shape[-1])
 
 
+def _ref_sparse24(x, values, meta, *, out_dtype=torch.bfloat16, bm=None,
+                  bn=None, bk=None):
+    return ref.sparse24_matmul_ref(x, values, meta, out_dtype=out_dtype)
+
+
 register_backend(MatmulBackend(
     name="ref", dense=_ref_dense, fp8=_ref_fp8, fp8_qdot=_ref_fp8_qdot,
-    sparse24=_no_sparse24,
+    sparse24=_ref_sparse24,
     description="plain f32 oracles (ground truth for allclose tests)"))
 
 
@@ -129,7 +135,7 @@ def _torch_fp8_qdot(x_q, w_q, x_inv_scale=1.0, w_inv_scale=1.0, *,
 
 register_backend(MatmulBackend(
     name="torch", dense=_torch_dense, fp8=_torch_fp8,
-    fp8_qdot=_torch_fp8_qdot, sparse24=_no_sparse24,
+    fp8_qdot=_torch_fp8_qdot, sparse24=_ref_sparse24,
     description="torch.matmul on f32-upcast operands (the non-kernel path)"))
 
 
@@ -202,7 +208,42 @@ def _hopper_fp8_qdot(x_q, w_q, x_inv_scale=1.0, w_inv_scale=1.0, *,
         *lead, w_q.shape[-1])
 
 
+def _hopper_sparse24(x, values, meta, *, out_dtype=torch.bfloat16, bm=None,
+                     bn=None, bk=None):
+    x2, lead = _flatten_lead(x)
+    out = _fwd_with_ref_grad(
+        lambda a, v, m: sm.sparse24_matmul(a.contiguous(), v.contiguous(),
+                                           m.contiguous(), out_dtype),
+        lambda a, v, m: _ref_sparse24(a, v, m, out_dtype=out_dtype),
+        x2, values, meta)
+    return out.reshape(*lead, values.shape[-1])
+
+
 register_backend(MatmulBackend(
     name="hopper", dense=_hopper_dense, fp8=_hopper_fp8,
-    fp8_qdot=_hopper_fp8_qdot, sparse24=_no_sparse24,
-    description="hand-written CUDA GEMM for sm_90a (plain twin on CPU)"))
+    fp8_qdot=_hopper_fp8_qdot, sparse24=_hopper_sparse24,
+    description="hand-written CUDA GEMMs for sm_90a (plain twins on CPU)"))
+
+
+# ---------------------------------------------------------------------------
+# hopper_sparse24 — the packed 2:4 GEMM as the primary path: a dense weight
+# is pruned and packed inside each call (serving-style, no STE). The
+# prune+pack re-runs per call; steady-state serving packs once
+# (``execution.pack_model_params``) and hands ``PackedWeight``s to the
+# model, which route straight to ``sparse24``. A weight the packed format
+# cannot hold (not 2-D, or K % 8) takes ``hopper.dense``, the reference's
+# own routing.
+# ---------------------------------------------------------------------------
+
+def _sparse24_primary_dense(x, w, *, out_dtype=torch.bfloat16, bm=None,
+                            bn=None, bk=None):
+    if w.dim() != 2 or w.shape[0] % 8:
+        return _hopper_dense(x, w, out_dtype=out_dtype)
+    values, meta = sp.pack_24(sp.prune_24(w))
+    return _hopper_sparse24(x, values, meta, out_dtype=out_dtype)
+
+
+register_backend(MatmulBackend(
+    name="hopper_sparse24", dense=_sparse24_primary_dense, fp8=_hopper_fp8,
+    fp8_qdot=_hopper_fp8_qdot, sparse24=_hopper_sparse24,
+    description="hopper with on-the-fly 2:4 prune+pack for dense weights"))

@@ -9,7 +9,14 @@ made from ``--seed`` on the device; prompts are random tokens.
 
 ``--backend hopper`` (or its JAX name ``pallas``) sends every linear through
 the hand-written GEMM kernel and prefill attention through the flash
-kernel. Without ``--device`` the session runs on ``cuda``.
+kernel. ``--policy bf16:sparse24:hopper`` prunes and packs the weights 2:4
+once and sends every packed linear through the packed 2:4 GEMM kernel;
+``--backend hopper_sparse24`` (``pallas_sparse24``) names the backend whose
+dense entry prunes and packs per call. Without ``--device`` the session
+runs on ``cuda``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --reduced --device cpu --policy bf16:sparse24:hopper
 """
 from __future__ import annotations
 
@@ -33,9 +40,11 @@ def main(argv=None):
     ap.add_argument("--policy", default=None,
                     help="execution-policy spec, e.g. 'fp8:dense:hopper'")
     ap.add_argument("--backend", default=None,
-                    choices=[None, "ref", "torch", "hopper", "jnp", "pallas"],
-                    help="matmul backend (kernels/registry.py); jnp and "
-                         "pallas are the JAX names of torch and hopper")
+                    choices=[None, "ref", "torch", "hopper", "hopper_sparse24",
+                             "jnp", "pallas", "pallas_sparse24"],
+                    help="matmul backend (kernels/registry.py); jnp, pallas "
+                         "and pallas_sparse24 are the JAX names of torch, "
+                         "hopper and hopper_sparse24")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--seed", type=int, default=0)
@@ -55,7 +64,7 @@ def main(argv=None):
     if args.backend:
         policy = dataclasses.replace(
             policy, backend=ex.BACKEND_ALIASES.get(args.backend, args.backend))
-    rt = RuntimeCfg(use_pallas=policy.backend == "hopper")
+    rt = RuntimeCfg(use_pallas=policy.backend in ("hopper", "hopper_sparse24"))
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=device)

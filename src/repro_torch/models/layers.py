@@ -2,7 +2,8 @@
 
 Twin of ``repro/models/layers.py``. ``dense()`` resolves the execution
 policy and dispatches through the matmul backend registry; every linear
-layer of the model goes through it.
+layer of the model goes through it, with a dense (K, N) weight or a
+:class:`PackedWeight` (sparse24 serving).
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import execution as ex
-from repro_torch.kernels import registry
+from repro_torch.core import sparsity as sp
+from repro_torch.core.execution import PackedWeight  # noqa: F401 (re-export)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,12 +37,34 @@ class RuntimeCfg:
 DEFAULT_RT = RuntimeCfg()
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, cfg: ArchConfig,
-          rt: RuntimeCfg = DEFAULT_RT, name: str = "") -> torch.Tensor:
-    """``x @ w`` routed through the resolved execution policy."""
+class _StePrune24(torch.autograd.Function):
+    """2:4 prune forward; straight-through backward (the gradient reaches
+    every weight, pruned or not)."""
+
+    @staticmethod
+    def forward(ctx, w):
+        return sp.prune_24(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def dense(x: torch.Tensor, w, cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT,
+          name: str = "") -> torch.Tensor:
+    """``x @ w`` routed through the resolved execution policy.
+
+    ``w`` is a dense (K, N) tensor or a :class:`PackedWeight`. Under a
+    sparse24 policy a dense 2-D weight with K % 8 == 0 is 2:4-pruned here,
+    with straight-through gradients; ``hopper_sparse24`` then demotes to
+    ``hopper``, whose dense GEMM computes the same product with the STE's
+    gradients (the backend's dense entry would prune again, per call)."""
     pol = ex.policy_from(cfg, rt)
-    if pol.sparsity == "sparse24":
-        raise NotImplementedError(registry.SPARSE24_TODO)
+    if not isinstance(w, PackedWeight) and pol.sparsity == "sparse24" \
+            and w.dim() == 2 and w.shape[0] % 8 == 0:
+        w = _StePrune24.apply(w)
+        if pol.backend == "hopper_sparse24":
+            pol = dataclasses.replace(pol, backend="hopper")
     return ex.matmul(x, w, pol, out_dtype=rt.act_dtype)
 
 
@@ -79,11 +103,14 @@ def embed_tokens(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def lm_logits(h: torch.Tensor, head_w: torch.Tensor, vocab_size: int,
               policy: Any = None) -> torch.Tensor:
     """Project to the (padded) vocab in f32; padding logits are -1e30.
-    The head stays on the policy's bf16 dense path whatever its precision."""
+    The head stays on the policy's bf16 dense path whatever its precision
+    or sparsity, ``hopper_sparse24`` demoted to ``hopper`` (whose dense
+    entry would prune the vocab projection)."""
     pol = policy or ex.get_default_policy()
+    backend = "hopper" if pol.backend == "hopper_sparse24" else pol.backend
     logits = ex.matmul(
         h, head_w, dataclasses.replace(pol, precision="bf16",
-                                       sparsity="dense"),
+                                       sparsity="dense", backend=backend),
         out_dtype=torch.float32)
     vp = head_w.shape[-1]
     if vp != vocab_size:

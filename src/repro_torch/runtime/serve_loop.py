@@ -8,6 +8,10 @@ idle ones included (token 0 at position 0), as the reference's jitted step
 does: the fp8 policies take one activation amax over all slots, so idle rows
 are part of the numerics.
 
+Under a sparse24 policy the session prunes and packs the eligible weights
+once, at construction, after moving them to its device
+(``execution.pack_model_params``), so every step streams packed bytes.
+
 Where the reference donates the cache to its jitted helpers, the port
 updates the cache tensors in place. Not in this slice: sampling
 (``temperature > 0``; the port serves greedy, the only mode whose tokens
@@ -99,6 +103,8 @@ def _clear_slot_cache(caches: Caches, slot: int) -> None:
 
 
 def _to_device(tree, device):
+    if isinstance(tree, ex.PackedWeight):
+        return ex.PackedWeight(tree.values.to(device), tree.meta.to(device))
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -142,6 +148,8 @@ class ServeSession:
                 print(f"[serve] policy: {policy.describe()}")
         self.policy = policy
         self.params = _to_device(params, self.device)
+        if policy is not None and policy.sparsity == "sparse24":
+            self.params = ex.pack_model_params(self.params)
         self.cfg = cfg
         self.rt = rt
         self.batch_slots = batch_slots

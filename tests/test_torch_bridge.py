@@ -46,6 +46,35 @@ def test_param_tree_unstacks_layers_bit_for_bit():
         tree["head"].view(np.uint16).tobytes()
 
 
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float8_e4m3fn])
+def test_packed_leaves_unstack_bit_for_bit(dtype):
+    """The reference's pack_model_params stacks values (n, K/2, N) and
+    meta (n, K/8, N); each layer gets its own PackedWeight."""
+    from repro.core import execution as jex
+    from repro_torch.core.execution import PackedWeight
+    cfg = get_reduced("llama3-8b")
+    params = init_params(jax.random.PRNGKey(1), cfg)
+    params = jax.tree.map(lambda a: a.astype(dtype) if a.ndim == 3 else a,
+                          params)
+    tree = jax.tree.map(np.asarray, jex.pack_model_params(params))
+    port = bridge.params_from_numpy(tree, cfg)
+    block = tree["layers"]["b0"]
+    carrier = np.uint16 if np.dtype(dtype).itemsize == 2 else np.uint8
+    for i, layer in enumerate(port["layers"]):
+        for group in ("attn", "mlp"):
+            for name, pw in layer[group].items():
+                jpw = block[group][name]
+                assert isinstance(pw, PackedWeight), (i, name)
+                assert pw.values.dtype == bridge.to_torch(
+                    np.asarray(jpw.values)).dtype
+                assert bridge.to_numpy_bits(pw.values).tobytes() == \
+                    np.asarray(jpw.values)[i].view(carrier).tobytes()
+                assert pw.meta.dtype == torch.uint8
+                assert pw.meta.numpy().tobytes() == \
+                    np.asarray(jpw.meta)[i].tobytes()
+    assert isinstance(port["head"], torch.Tensor)
+
+
 def test_configs_are_copies_of_the_reference():
     from repro.configs import ARCHS, REDUCED
     from repro_torch.configs import ARCHS as T_ARCHS, REDUCED as T_REDUCED

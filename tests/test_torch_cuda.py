@@ -7,9 +7,12 @@ CUDA device every test skips.
 import pytest
 import torch
 
+from repro_torch.core import execution as tex
 from repro_torch.core import fp8 as tfp8
+from repro_torch.core import sparsity as tsp
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fp8_matmul as fm
+from repro_torch.kernels import sparse24_matmul as sm
 
 
 def _need_cuda():
@@ -58,3 +61,59 @@ def test_cuda_quantization_matches_the_cpu_bytes():
         gq, ginv = tfp8.quantize_weight_static(w.cuda(), dt)
         assert torch.equal(gq.cpu().view(torch.uint8), cq.view(torch.uint8))
         assert torch.equal(ginv.cpu(), cinv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 512, 1024), (77, 4000, 1000),
+                                   (3, 24, 40), (128, 256, 384)])
+@pytest.mark.parametrize("vdtype", [torch.bfloat16, torch.float8_e4m3fn,
+                                    torch.float8_e5m2])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sparse24_kernel_matches_plain(m, k, n, vdtype, out_dtype):
+    """Weights scaled by K^-0.5, so outputs are O(1). f32 output: both sum
+    exact products in f32 and differ in order only (~1e-6); bf16 output
+    adds one rounding either may take on the other side."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((k, n), generator=gen, device="cuda")
+         * k ** -0.5).to(vdtype)
+    values, meta = tsp.pack_24(tsp.prune_24(w))
+    before = sm.LAUNCHES
+    got = sm.sparse24_matmul(x, values, meta, out_dtype)
+    assert sm.LAUNCHES == before + 1
+    want = sm.sparse24_matmul_plain(x, values, meta, out_dtype)
+    tol = 1e-4 if out_dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,block", [(4, 4096, 1024, 128),
+                                         (77, 512, 1000, 64),
+                                         (3, 96, 40, 12), (5, 64, 36, 8)])
+def test_cuda_block24_kernel_matches_plain(m, k, n, block):
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+    wp, keep = tsp.prune_block24(w, block)
+    kept = tuple(int(i) for i in torch.nonzero(keep).flatten())
+    packed = torch.cat([wp[i * block:(i + 1) * block] for i in kept])
+    before = sm.BLOCK24_LAUNCHES
+    got = sm.block24_matmul(x, packed, kept, block, torch.float32)
+    assert sm.BLOCK24_LAUNCHES == before + 1
+    torch.testing.assert_close(
+        got, sm.block24_matmul_plain(x, packed, kept, block, torch.float32),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_pack_matches_the_cpu_bytes():
+    _need_cuda()
+    w = torch.randn((256, 96), generator=torch.Generator().manual_seed(5))
+    for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
+        cpu = tex.pack_weight(w.to(dt))
+        gpu = tex.pack_weight(w.to(dt).cuda())
+        assert torch.equal(gpu.meta.cpu(), cpu.meta)
+        assert torch.equal(gpu.values.cpu().view(torch.uint8),
+                           cpu.values.view(torch.uint8))

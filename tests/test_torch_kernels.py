@@ -11,14 +11,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import sparsity as jsp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import bridge
+from repro_torch.core import sparsity as tsp
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fp8_matmul as fm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import registry
+from repro_torch.kernels import sparse24_matmul as sm
 
 FP8 = [jnp.float8_e4m3fn, jnp.float8_e5m2]
 
@@ -93,11 +97,55 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     q = torch.empty((1, 2, 4, 32), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+    v = torch.empty((4, 4), dtype=torch.bfloat16, device="meta")
+    m = torch.empty((1, 4), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError):
+        sm.sparse24_matmul(x, v, m)
+    with pytest.raises(ValueError):
+        sm.block24_matmul(x, v, (0,), block=4)
+
+
+def test_every_source_and_its_headers_are_in_csrc():
+    """Each built source exists, has its C signatures, and every header it
+    includes with quotes lies beside it in csrc/."""
+    import re
+    for name in _build.SOURCES:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        for fn in _build.SIGNATURES[name]:
+            assert f'extern "C" int {fn}(' in src, (name, fn)
+        for header in re.findall(r'#include "([^"]+)"', src):
+            assert (_build.CSRC / header).is_file(), (name, header)
+
+
+def test_library_name_follows_source_and_headers(tmp_path, monkeypatch):
+    """An edit to a source or to any csrc/*.cuh header renames the built
+    library, so a stale one is never loaded."""
+    (tmp_path / "k.cu").write_text('#include "t.cuh"\n')
+    (tmp_path / "t.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("k")
+    assert _build._target("k") == first
+    (tmp_path / "t.cuh").write_text("// v2\n")
+    second = _build._target("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "t.cuh"\n// edited\n')
+    assert _build._target("k") not in (first, second)
 
 
 def test_sparse24_entries_name_the_later_slice():
-    with pytest.raises(NotImplementedError, match="sparse24"):
-        registry.get_backend("hopper").sparse24(None, None, None)
+    """The sparse24 entry of every backend (a NotImplementedError until
+    the packed GEMM was ported) computes the packed product now."""
+    jx, tx = _mat((2, 5, 64), 20, jnp.bfloat16, 1.0)
+    jw, tw = _mat((64, 24), 21, jnp.bfloat16, 1.0)
+    jv, jm = jsp.pack_24(jsp.prune_24(jw))
+    tv, tm = tsp.pack_24(tsp.prune_24(tw))
+    want = jref.sparse24_matmul_ref(jx, jv, jm, out_dtype=jnp.float32)
+    for name in ("ref", "torch", "hopper", "hopper_sparse24"):
+        got = registry.get_backend(name).sparse24(tx, tv, tm,
+                                                  out_dtype=torch.float32)
+        assert got.shape == (2, 5, 24), name
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-4, err_msg=name)
 
 
 def test_hopper_backward_runs_the_reference():
@@ -131,6 +179,110 @@ def test_ops_fp8_matmul_dynamic_matches_jax(dtype):
     assert got.shape == (2, 8, 32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-4)
+
+
+# -- kernels D and E: packed 2:4 and block-2:4 GEMMs -----------------------------
+
+@pytest.mark.parametrize("m,k,n", [(128, 256, 128), (64, 512, 256)])
+@pytest.mark.parametrize("vdtype", [jnp.bfloat16, jnp.float8_e4m3fn])
+def test_plain_sparse24_matches_pallas_kernel(m, k, n, vdtype):
+    """test_kernels.py's shapes and tolerance (rtol = atol = 2e-2: the
+    Pallas kernel's f32 sums in another order, bf16 output)."""
+    jx, tx = _mat((m, k), 22, jnp.bfloat16, 1.0)
+    jw, tw = _mat((k, n), 23, vdtype, 1.0)
+    jv, jm = jsp.pack_24(jsp.prune_24(jw))
+    tv, tm = tsp.pack_24(tsp.prune_24(tw))
+    want = jops.sparse24_matmul(jx, jv, jm, out_dtype=jnp.float32,
+                                bm=64, bn=128, bk=128)
+    got = sm.sparse24_matmul(tx, tv, tm, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-2, atol=2e-2)
+    got16 = tops.sparse24_matmul(tx[None], tv, tm)
+    assert got16.shape == (1, m, n) and got16.dtype == torch.bfloat16
+    np.testing.assert_allclose(got16[0].float().numpy(), np.asarray(want),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("vdtype", [jnp.bfloat16, jnp.float8_e4m3fn,
+                                    jnp.float8_e5m2])
+def test_plain_sparse24_takes_ragged_shapes(vdtype):
+    """M=3, N=40, K=24: no Pallas tile divides them; the port's kernel
+    masks them."""
+    jx, tx = _mat((3, 24), 24, jnp.bfloat16, 1.0)
+    jw, tw = _mat((24, 40), 25, vdtype, 1.0)
+    jv, jm = jsp.pack_24(jsp.prune_24(jw))
+    tv, tm = tsp.pack_24(tsp.prune_24(tw))
+    want = jref.sparse24_matmul_ref(jx, jv, jm, out_dtype=jnp.float32)
+    got = sm.sparse24_matmul(tx, tv, tm, out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(
+        tref.sparse24_matmul_ref(tx, tv, tm, out_dtype=torch.float32).numpy(),
+        np.asarray(want), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("block", [64, 32])
+def test_plain_block24_matches_pallas_kernel(block):
+    """test_kernels.py's test_block24_kernel (block 64), and block 32."""
+    jx, tx = _mat((64, 512), 26, jnp.bfloat16, 1.0)
+    jw, tw = _mat((512, 128), 27, jnp.bfloat16, 1.0)
+    jwp, jkeep = jsp.prune_block24(jw, block=block)
+    kept = tuple(int(i) for i in np.nonzero(np.asarray(jkeep))[0])
+    jpacked = jnp.concatenate([jwp[i * block:(i + 1) * block] for i in kept])
+    tpacked = bridge.to_torch(np.asarray(jpacked))
+    want = jops.block24_matmul(jx, jpacked, kept, block=block,
+                               out_dtype=jnp.float32)
+    got = tops.block24_matmul(tx, tpacked, kept, block=block,
+                              out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(
+        tref.block24_matmul_ref(tx, tpacked, kept, block=block,
+                                out_dtype=torch.float32).numpy(),
+        np.asarray(jref.block24_matmul_ref(jx, jpacked, kept, block=block,
+                                           out_dtype=jnp.float32)),
+        rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError):
+        sm.block24_matmul(tx, tpacked, kept[:-1], block=block)
+
+
+def test_hopper_sparse24_routes_cpu_tensors_to_the_plain_version():
+    _, tx = _mat((2, 3, 32), 28, jnp.bfloat16, 1.0)
+    _, tw = _mat((32, 16), 29, jnp.bfloat16, 1.0)
+    tv, tm = tsp.pack_24(tsp.prune_24(tw))
+    before = (sm.LAUNCHES, sm.BLOCK24_LAUNCHES, fm.LAUNCHES)
+    out = registry.get_backend("hopper").sparse24(tx, tv, tm,
+                                                  out_dtype=torch.float32)
+    primary = registry.get_backend("hopper_sparse24").dense(
+        tx, tw, out_dtype=torch.float32)
+    assert (sm.LAUNCHES, sm.BLOCK24_LAUNCHES, fm.LAUNCHES) == before
+    want = sm.sparse24_matmul_plain(tx.reshape(6, 32), tv, tm,
+                                    torch.float32).reshape(2, 3, 16)
+    assert torch.equal(out, want) and torch.equal(primary, want)
+    # a weight the packed format cannot hold takes the dense GEMM
+    _, tw7 = _mat((28, 16), 30, jnp.bfloat16, 1.0)
+    _, tx7 = _mat((3, 28), 31, jnp.bfloat16, 1.0)
+    assert torch.equal(
+        registry.get_backend("hopper_sparse24").dense(
+            tx7, tw7, out_dtype=torch.float32),
+        fm.fp8_matmul_plain(tx7, tw7))
+
+
+def test_hopper_sparse24_backward_runs_the_reference():
+    rng = np.random.default_rng(32)
+    x = torch.tensor(rng.normal(size=(3, 16)), dtype=torch.float32,
+                     requires_grad=True)
+    tv, tm = tsp.pack_24(tsp.prune_24(torch.tensor(
+        rng.normal(size=(16, 8)), dtype=torch.float32)))
+    grads = []
+    for name in ("hopper", "torch"):
+        out = registry.get_backend(name).sparse24(x, tv, tm,
+                                                  out_dtype=torch.float32)
+        (gx,) = torch.autograd.grad(out.square().sum(), (x,))
+        grads.append((out.detach(), gx))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 # -- kernel B: flash attention --------------------------------------------------

@@ -1,6 +1,7 @@
 """The port's layers against the JAX package's on the same inputs."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ from repro.core import execution as jex
 from repro.models import layers as jl
 from repro_torch import bridge
 from repro_torch.core import execution as tex
+from repro_torch.core import sparsity as tsp
 from repro_torch.models import layers as tl
 
 CFG = get_reduced("llama3-8b")
@@ -100,8 +102,8 @@ def test_parse_policy_takes_the_jax_names():
     assert tex.parse_policy("jnp").backend == "torch"
     assert tex.parse_policy("bf16:hopper:64x64x64").blocks == \
         {"bm": 64, "bn": 64, "bk": 64}
-    with pytest.raises(NotImplementedError, match="sparse24"):
-        tex.parse_policy("bf16:pallas_sparse24")
+    pol = tex.parse_policy("bf16:sparse24:pallas_sparse24")
+    assert (pol.sparsity, pol.backend) == ("sparse24", "hopper_sparse24")
     with pytest.raises(ValueError):
         tex.parse_policy("bf16:dense:tpu")
 
@@ -122,8 +124,73 @@ def test_policy_precedence_matches_the_reference():
 
 
 def test_dense_refuses_sparse24_for_now():
+    """dense() under a sparse24 policy (refused until the slice that ported
+    it) prunes the weight 2:4 and multiplies: equal to the pruned product,
+    on the default backend as on the others."""
     _, tx = _arr((2, 16), 8)
     _, tw = _arr((16, 8), 9)
-    rt = tl.RuntimeCfg(policy=tex.ExecutionPolicy(sparsity="sparse24"))
-    with pytest.raises(NotImplementedError, match="sparse24"):
-        tl.dense(tx, tw, CFG, rt)
+    rt = tl.RuntimeCfg(act_dtype=torch.float32,
+                       policy=tex.ExecutionPolicy(sparsity="sparse24"))
+    want = tx @ tsp.prune_24(tw)
+    torch.testing.assert_close(tl.dense(tx, tw, CFG, rt), want)
+    # a weight the 2:4 format cannot hold (K % 8) stays dense
+    _, tw12 = _arr((12, 8), 10)
+    _, tx12 = _arr((2, 12), 11)
+    torch.testing.assert_close(tl.dense(tx12, tw12, CFG, rt), tx12 @ tw12)
+
+
+SPARSE_PAIRS = [("bf16:sparse24:jnp", "bf16:sparse24:torch"),
+                ("bf16:sparse24:pallas", "bf16:sparse24:hopper"),
+                ("bf16:sparse24:pallas_sparse24",
+                 "bf16:sparse24:hopper_sparse24"),
+                ("fp8:sparse24:jnp", "fp8:sparse24:torch")]
+
+
+@pytest.mark.parametrize("jspec,tspec", SPARSE_PAIRS)
+@pytest.mark.parametrize("dtype,tol", [(jnp.float32, 1e-5),
+                                       (jnp.bfloat16, 2e-2)])
+def test_dense_sparse24_on_unpacked_weight(jspec, tspec, dtype, tol):
+    """The STE prune in dense(), then the policy's GEMM (f32 tolerance:
+    summation order; fp8 quantizes the pruned weight per call)."""
+    jx, tx = _arr((2, 8, 64), 12, dtype)
+    jw, tw = _arr((64, 48), 13, dtype, 64 ** -0.5)
+    jrt = jl.RuntimeCfg(act_dtype=dtype, policy=jex.parse_policy(jspec))
+    trt = tl.RuntimeCfg(act_dtype=tx.dtype, policy=tex.parse_policy(tspec))
+    got = tl.dense(tx, tw, CFG, trt)
+    assert got.dtype == tx.dtype and got.shape == (2, 8, 48)
+    tol = max(tol, 1e-4) if jspec.startswith("fp8") else tol
+    _close(got, jl.dense(jx, jw, CFG, jrt), tol)
+
+
+@pytest.mark.parametrize("jspec,tspec", SPARSE_PAIRS[:3])
+def test_dense_sparse24_ste_gradient_matches_jax(jspec, tspec):
+    """Straight-through: d/dw reaches every weight, pruned or not."""
+    jx, tx = _arr((3, 32), 14)
+    jw, tw = _arr((32, 16), 15, jnp.float32, 32 ** -0.5)
+    jrt = jl.RuntimeCfg(act_dtype=jnp.float32,
+                        policy=jex.parse_policy(jspec))
+    trt = tl.RuntimeCfg(act_dtype=torch.float32,
+                        policy=tex.parse_policy(tspec))
+    jgx, jgw = jax.grad(lambda x, w: jnp.sum(jl.dense(x, w, CFG, jrt) ** 2),
+                        argnums=(0, 1))(jx, jw)
+    tx.requires_grad_(True)
+    tw.requires_grad_(True)
+    tgx, tgw = torch.autograd.grad(tl.dense(tx, tw, CFG, trt).square().sum(),
+                                   (tx, tw))
+    _close(tgx, jgx, 1e-5)
+    _close(tgw, jgw, 1e-5)
+    assert bool((tgw[tsp.prune_24(tw.detach()) == 0] != 0).any())
+
+
+def test_lm_logits_under_hopper_sparse24_stays_dense():
+    """The head is not pruned: hopper_sparse24 demotes to hopper."""
+    vocab, vp = 500, 512
+    jh, th = _arr((3, 128), 16, jnp.bfloat16)
+    jw, tw = _arr((128, vp), 17, jnp.bfloat16, 128 ** -0.5)
+    dense = tl.lm_logits(th, tw, vocab, policy=tex.parse_policy("hopper"))
+    got = tl.lm_logits(th, tw, vocab, policy=tex.parse_policy(
+        "bf16:sparse24:hopper_sparse24"))
+    assert torch.equal(got, dense)
+    want = jl.lm_logits(jh, jw, vocab, policy=jex.parse_policy(
+        "bf16:sparse24:pallas_sparse24"))
+    _close(got, want, 1e-4)

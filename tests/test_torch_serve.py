@@ -133,7 +133,8 @@ def test_unported_session_modes_raise():
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, repro_torch.runtime.serve_loop, "
             "repro_torch.launch.serve, repro_torch.kernels.ops, "
-            "repro_torch.bridge\n"
+            "repro_torch.bridge, repro_torch.core.sparsity, "
+            "repro_torch.kernels.sparse24_matmul\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")
