@@ -14,9 +14,14 @@ matmul packed product): the first prefill's logits and the first decode
 step's (the torch step run on a copy of the same state) within LOGIT_TOL,
 and a full torch-backend run of the same requests whose greedy tokens may
 first differ from the hopper run's only at a near-tie (top-2 margin under
-twice LOGIT_TOL). A profiled decode step gives the device's busy time and
-idle share. Kernel E (block-2:4) is on no serving path; its one entry
-point, ``kernels.ops.block24_matmul``, is driven at its phase's shapes.
+twice LOGIT_TOL). ``bf16:dense:hopper`` is served a second time from a
+paged cache (32 pages of 16 rows, a quarter of the dense cache), whose
+greedy tokens must equal the dense run's exactly. A profiled decode step
+gives the device's busy time and idle share. Kernels C (paged flash
+decode) and E (block-2:4) are on no serving path, as in the reference:
+their entry points (``kernels.paged_attention.paged_decode_attention`` and
+``sweep_paged_tilings``, ``kernels.ops.block24_matmul``) are driven at
+their phases' shapes, and C also on the paged run's live pools.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -48,9 +53,11 @@ PROMPT_LENS = (128, 77)
 # every element: 0.49 measured at the first prefill, so 1.0.
 LOGIT_TOL = {"bf16": 0.15, "fp8": 1.0}
 
-# H100 SXM data-sheet peaks (dense): bytes/s and operations/s per type.
+# H100 SXM data-sheet peaks (dense): bytes/s and operations/s per type
+# (f32 outside the tensor cores).
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "e4m3": 1979e12, "e5m2": 1979e12}
+PEAK_OPS_S = {"bf16": 989e12, "e4m3": 1979e12, "e5m2": 1979e12,
+              "f32": 67e12}
 
 
 def fail(msg: str) -> None:
@@ -80,6 +87,25 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """Mean device time per call of ``fn``: the summed durations of the
+    kernels it launches, from torch.profiler over ``iters`` calls (after
+    one warm-up call). Unlike ``time_ms`` it leaves out the gaps in which
+    the device waits for the host to issue the next call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) \
+        / 1e3 / iters
 
 
 def bound_ms(n_bytes: float, n_ops: float, kind: str):
@@ -476,6 +502,212 @@ def block24_phase():
 
 
 # ---------------------------------------------------------------------------
+# Kernel C: paged flash decode against its plain version
+# ---------------------------------------------------------------------------
+
+# kernel-vs-plain tolerance (absolute, on f32 outputs of magnitude <= ~3):
+# f32 pools, JAX's own test tolerance; bf16 pools, both sides sum the same
+# bf16 values in f32, in another order.
+PAGED_TOL = {"float32": 2e-5, "bfloat16": 1e-4}
+# llama3-8b's decode attention: 32 heads over 8 kv heads of 128, pages of
+# 16 rows, max_len 512 (32 pages per slot)
+PAGED_GEOMETRY = dict(h=32, kvh=8, hd=128)
+
+
+def serving_tables():
+    """Tables of 4 slots from a PageAllocator driven through alloc, extend
+    and free, so page ids are out of order: lengths 129, 78, 1 and an idle
+    slot with no pages."""
+    import torch
+    from repro_torch.core.paging import PageAllocator
+    a = PageAllocator(128, 16, MAX_LEN // 16, SLOTS)
+    a.alloc_slot(0, 40)
+    a.alloc_slot(1, 100)
+    a.alloc_slot(2, 20)
+    a.free_slot(1)
+    a.alloc_slot(3, 50)
+    a.extend_slot(0, 129)
+    a.alloc_slot(1, 78)
+    a.free_slot(2)
+    a.alloc_slot(2, 1)
+    a.free_slot(3)
+    pm = torch.as_tensor(a.page_map(), device="cuda")
+    return pm, torch.tensor([129, 78, 1, 0], dtype=torch.int32,
+                            device="cuda")
+
+
+def paged_cases(gen):
+    """(label, q, k_pages, v_pages, page_map, lengths) at the serving shape,
+    at the sweep's shapes (full tables, length 512, pages of 8/16/32) and
+    at the JAX test's geometry in f32."""
+    import torch
+
+    def pools(B, h, kvh, hd, n_pages, ps, dtype):
+        q = torch.randn((B, h, hd), generator=gen, device="cuda").to(dtype)
+        kp = torch.randn((n_pages, ps, kvh, hd), generator=gen,
+                         device="cuda").to(dtype)
+        vp = torch.randn((n_pages, ps, kvh, hd), generator=gen,
+                         device="cuda").to(dtype)
+        return q, kp, vp
+
+    h, kvh, hd = (PAGED_GEOMETRY[k] for k in ("h", "kvh", "hd"))
+    pm, ln = serving_tables()
+    cases = [("serving_ps16", *pools(SLOTS, h, kvh, hd, 129, 16,
+                                     torch.bfloat16), pm, ln)]
+    for ps in (8, 16, 32):
+        mp = MAX_LEN // ps
+        pm = torch.arange(SLOTS * mp, dtype=torch.int32,
+                          device="cuda").reshape(SLOTS, mp)
+        ln = torch.full((SLOTS,), MAX_LEN, dtype=torch.int32, device="cuda")
+        cases.append((f"sweep_ps{ps}", *pools(SLOTS, h, kvh, hd,
+                                              SLOTS * mp + 1, ps,
+                                              torch.bfloat16), pm, ln))
+    pm = torch.full((3, 4), -1, dtype=torch.int32)
+    pm[0, :2] = torch.tensor([5, 9])
+    pm[1, :4] = torch.tensor([0, 1, 2, 3])
+    pm[2, :1] = 7
+    cases.append(("jax_test_f32", *pools(3, 4, 2, 16, 13, 8, torch.float32),
+                  pm.cuda(), torch.tensor([13, 32, 1], dtype=torch.int32,
+                                          device="cuda")))
+    return cases
+
+
+def paged_work(q, k_pages, page_map, lengths):
+    """(bytes, operations, valid rows) of the function on these inputs:
+    each valid K and V row read once, q, the f32 output, the table and
+    lengths; two multiply-adds per valid row, query head and head-dim
+    element."""
+    B, h, hd = q.shape
+    ps, kvh = k_pages.shape[1], k_pages.shape[2]
+    pm = page_map.tolist()
+    rows = sum(1 for b, n in enumerate(lengths.tolist())
+               for t in range(min(n, len(pm[b]) * ps)) if pm[b][t // ps] >= 0)
+    esize = k_pages.element_size()
+    n_bytes = 2 * rows * kvh * hd * esize + q.numel() * esize \
+        + B * h * hd * 4 + page_map.numel() * 4 + lengths.numel() * 4
+    return n_bytes, 4.0 * rows * (h // kvh) * hd, rows
+
+
+def sdpa_call(q, k_pages, v_pages, page_map, lengths):
+    """``scaled_dot_product_attention`` on the same inputs after a gather
+    of each slot's pages and a boolean mask, both done here, outside any
+    timed region (rows with nothing valid come out NaN there; only the
+    time is kept). Returns the call to time."""
+    import torch
+    import torch.nn.functional as F
+    B, h, hd = q.shape
+    _, ps, kvh, _ = k_pages.shape
+    mp = page_map.shape[1]
+    safe = page_map.clamp(min=0).long()
+    k = k_pages[safe].reshape(B, mp * ps, kvh, hd).transpose(1, 2) \
+        .contiguous()
+    v = v_pages[safe].reshape(B, mp * ps, kvh, hd).transpose(1, 2) \
+        .contiguous()
+    pos = torch.arange(mp * ps, device="cuda")
+    mask = (pos[None, :] < lengths[:, None]) \
+        & (page_map >= 0).repeat_interleave(ps, dim=1)
+    mask = mask[:, None, None, :]
+    q4 = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        q4, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def paged_phase():
+    """Kernel C through its entry point ``paged_decode_attention`` once
+    per case, with the counter set to 0 just before and read just after;
+    then each case held against the plain version and timed."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    cases = paged_cases(gen)
+    pa.LAUNCHES = 0
+    for label, *args in cases:
+        out = pa.paged_decode_attention(*args)
+        if out.shape != args[0].shape or out.dtype != torch.float32:
+            fail(f"paged_decode_attention {label} gave {tuple(out.shape)} "
+                 f"{out.dtype}")
+    torch.cuda.synchronize()
+    entry_launches = pa.LAUNCHES
+    print(f"[paged] paged_decode_attention over {len(cases)} cases: "
+          f"{entry_launches} kernel launches", flush=True)
+    if entry_launches != len(cases):
+        fail("paged_decode_attention did not launch kernel C once per call")
+    rows = []
+    for label, q, kp, vp, pm, ln in cases:
+        got = pa.paged_flash_decode(q, kp, vp, pm, ln)
+        want = pa.paged_flash_decode_plain(q, kp, vp, pm, ln)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = PAGED_TOL[str(kp.dtype).split(".")[-1]]
+        empty = ln == 0
+        ok = bool(torch.isfinite(got).all()) and err <= tol \
+            and bool((got[empty] == 0).all())
+        B, h, hd = q.shape
+        _, ps, kvh, _ = kp.shape
+        print(f"[paged] {label} B={B} h={h} kvh={kvh} hd={hd} ps={ps} "
+              f"mp={pm.shape[1]} {str(kp.dtype).split('.')[-1]} lengths "
+              f"{ln.tolist()}: max_abs_err={err:.3e} (tolerance {tol}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"paged decode {label} disagrees with its plain version "
+                 f"(max_abs_err {err:.3e} > {tol}, or an empty row not 0)")
+        def kernel():
+            return pa.paged_flash_decode(q, kp, vp, pm, ln)
+
+        sdpa = sdpa_call(q, kp, vp, pm, ln)
+        ms = time_ms(kernel, 200)
+        plain = time_ms(lambda: pa.paged_flash_decode_plain(
+            q, kp, vp, pm, ln), 20)
+        lib = time_ms(sdpa, 200)
+        n_bytes, n_ops, n_rows = paged_work(q, kp, pm, ln)
+        kind = "bf16" if kp.dtype == torch.bfloat16 else "f32"
+        bms, by = bound_ms(n_bytes, n_ops, kind)
+        row = {"label": label, "B": B, "h": h, "kvh": kvh, "hd": hd,
+               "page_size": ps, "max_pages": pm.shape[1],
+               "lengths": ln.tolist(), "valid_rows": n_rows,
+               "type": kind, "max_abs_err": err, "ms": ms,
+               "device_ms": device_ms(kernel),
+               "plain_ms": plain, "library_ms": lib,
+               "library_device_ms": device_ms(sdpa),
+               "library_note": "scaled_dot_product_attention after a gather "
+                               "and a boolean mask (both untimed)",
+               "bytes": n_bytes, "bound_ms": bms, "bound_by": by,
+               "entry_point_launches": entry_launches}
+        rows.append(row)
+        print(f"[paged-time] {json.dumps(row)}", flush=True)
+    return rows
+
+
+def sweep_phase():
+    """fig20's page-geometry sweep at llama3-8b's geometry (4 slots,
+    max_len 512): three records, and the best page size recorded in the
+    block-shape cache. Returns (records, kernel launches)."""
+    import torch
+    from repro_torch.core import execution as ex
+    from repro_torch.kernels import paged_attention as pa
+    h, kvh, hd = (PAGED_GEOMETRY[k] for k in ("h", "kvh", "hd"))
+    pa.LAUNCHES = 0
+    recs = pa.sweep_paged_tilings(batch=SLOTS, seq=MAX_LEN, head_dim=hd,
+                                  kv_heads=kvh, heads=h)
+    torch.cuda.synchronize()
+    launches = pa.LAUNCHES
+    for rec in recs:
+        print(f"[sweep] {rec.name}: {rec.us_per_call:.2f} us per call "
+              f"(host clock, synchronised; {rec.derived})", flush=True)
+    if len(recs) != len(pa.SWEEP_PAGE_SIZES) or launches != 4 * len(recs):
+        fail(f"sweep_paged_tilings gave {len(recs)} records and {launches} "
+             "kernel launches")
+    best = min(recs, key=lambda r: r.us_per_call)
+    got = ex.BLOCK_CACHE.lookup(SLOTS, hd, MAX_LEN, "bf16")
+    want = (1, best.derived["page_size"], hd)
+    print(f"[sweep] BLOCK_CACHE[{SLOTS}, {hd}, {MAX_LEN}, bf16] = {got} "
+          f"(best page size {want[1]})", flush=True)
+    if got != want:
+        fail(f"BLOCK_CACHE holds {got} for the sweep's shape, not {want}")
+    return recs, launches
+
+
+# ---------------------------------------------------------------------------
 # Set-up
 # ---------------------------------------------------------------------------
 
@@ -521,6 +753,8 @@ def build_phase():
 # The port's kernel launch counters, by the name the kernel line gives each
 # kernel, and the kernels each sparsity's serving path must launch (the
 # others must not launch there).
+# (Kernel C is on no serving path, paged or dense: as in the reference, the
+# paged decode step gathers pages with plain tensor ops.)
 PATH_KERNELS = {"dense": ("gemm", "flash_attention"),
                 "sparse24": ("gemm", "flash_attention", "sparse24_gemm")}
 
@@ -528,17 +762,20 @@ PATH_KERNELS = {"dense": ("gemm", "flash_attention"),
 def launch_counts() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fp8_matmul as fm
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sparse24_matmul as sm
     return {"gemm": fm.LAUNCHES, "flash_attention": fa.LAUNCHES,
-            "sparse24_gemm": sm.LAUNCHES,
+            "paged_attention": pa.LAUNCHES, "sparse24_gemm": sm.LAUNCHES,
             "block24_gemm": sm.BLOCK24_LAUNCHES}
 
 
 def zero_launch_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fp8_matmul as fm
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import sparse24_matmul as sm
-    fm.LAUNCHES = fa.LAUNCHES = sm.LAUNCHES = sm.BLOCK24_LAUNCHES = 0
+    fm.LAUNCHES = fa.LAUNCHES = pa.LAUNCHES = sm.LAUNCHES = \
+        sm.BLOCK24_LAUNCHES = 0
 
 
 def _margin(row) -> float:
@@ -547,14 +784,40 @@ def _margin(row) -> float:
     return float(top[0] - top[1])
 
 
-def drive(sess, requests, twin=None):
+def check_completed(tag, run) -> None:
+    n_done = len(run["outs"])
+    if n_done != N_REQUESTS or any(len(o) != MAX_NEW
+                                   for o in run["outs"].values()):
+        fail(f"{tag}: {n_done}/{N_REQUESTS} requests completed")
+
+
+def mean_ms(seconds) -> float:
+    return 1e3 * sum(seconds) / len(seconds)
+
+
+def run_times(tag, run) -> dict:
+    """The end-to-end metrics of one ``drive`` run."""
+    n_tok = sum(len(o) for o in run["outs"].values())
+    dec_ms = sorted(1e3 * t for t in run["decode_s"])
+    return {"policy": tag, "requests": len(run["outs"]), "tokens": n_tok,
+            "prefill_ms": mean_ms(run["prefill_s"]),
+            "decode_ms_per_step": sum(dec_ms) / len(dec_ms),
+            "decode_ms_median": dec_ms[len(dec_ms) // 2],
+            # the highest percentile with ten samples beyond it
+            "decode_ms_p67": dec_ms[max(0, len(dec_ms) - 11)],
+            "decode_steps": len(dec_ms),
+            "tok_s": n_tok / run["wall_s"], "wall_s": run["wall_s"]}
+
+
+def drive(sess, requests, twin=None, after_first_decode=None):
     """Serve ``requests`` the way ``ServeSession.run`` does, one admission
     and one decode step at a time, timing each (host clock around work
     that ends in a device synchronise) and keeping what the comparison
     needs: the first prefill's and first decode's logits, and the top-2
     margin behind every token. ``twin(params, tokens, caches, pos)`` is
     run on a copy of the state the first decode step starts from, so its
-    logits compare with that step's on identical inputs."""
+    logits compare with that step's on identical inputs;
+    ``after_first_decode(sess)`` is called once, after that step."""
     import numpy as np
     import torch
     for r in requests:
@@ -564,7 +827,7 @@ def drive(sess, requests, twin=None):
     prefill_s, decode_s = [], []
     t_start = time.perf_counter()
     while sess.queue or sess.n_active:
-        while sess.queue and sess.has_free_slot():
+        while sess.queue and sess.can_admit(sess.queue[0]):
             req = sess.queue.pop(0)
             t0 = time.perf_counter()
             sess.admit(req)
@@ -590,6 +853,8 @@ def drive(sess, requests, twin=None):
             first["decode_rows"] = [i for i, _, _ in active]
             if state is not None:
                 first["decode_twin"] = twin(sess.params, *state).float()
+            if after_first_decode is not None:
+                after_first_decode(sess)
         for i, r, n in active:
             margins[(r.uid, n)] = _margin(sess.last_logits[i])
     wall = time.perf_counter() - t_start
@@ -660,11 +925,143 @@ def serve_phase():
         results[tag].update(profile_decode(
             session("hopper", True), requests(),
             results[tag]["decode_ms_per_step"]))
+        if precision == "bf16":
+            results[PAGED_TAG] = serve_paged(params, cfg, requests, run,
+                                             launches)
     torch.cuda.empty_cache()
     results["bf16:sparse24:hopper"] = serve_sparse24(params, cfg, requests)
     del params
     torch.cuda.empty_cache()
     return results
+
+
+PAGED_TAG = "bf16:dense:hopper paged"
+# the paged run's pool: 32 pages of 16 rows, a quarter of the dense cache
+PAGE_SIZE, PAGES = 16, 32
+# layers whose live pools kernel C reads after the paged run's first step
+LIVE_LAYERS = (0, 15, 31)
+
+
+def serve_paged(params, cfg, requests, dense_run, dense_launches):
+    """``bf16:dense:hopper`` from a paged cache: the same params and
+    requests as the dense run, whose greedy tokens it must equal exactly
+    (the reference's contract: the same kernels on the same data, masked
+    rows weighted exactly 0). Kernels A and B launch as often as in the
+    dense run, C, D and E never. Then kernel C through
+    ``paged_decode_attention`` on the live pools of three layers, as they
+    stood after the first decode step, against its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.core import execution as ex
+    from repro_torch.core.paging import pages_for
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.layers import RuntimeCfg
+    from repro_torch.runtime.serve_loop import ServeSession
+
+    peak = 0
+    for i in range(0, N_REQUESTS, SLOTS):     # admitted in waves of SLOTS
+        peak = max(peak, sum(pages_for(len(r.prompt) + MAX_NEW - 1,
+                                       PAGE_SIZE)
+                             for r in requests()[i:i + SLOTS]))
+    print(f"[serve] {PAGED_TAG}: at most {peak} of {PAGES} pages in use "
+          f"(a slot writes prompt + {MAX_NEW - 1} positions)", flush=True)
+
+    def session(paged=True):
+        kw = dict(paged=True, page_size=PAGE_SIZE, pages=PAGES) if paged \
+            else {}
+        return ServeSession(
+            params, cfg, batch_slots=SLOTS, max_len=MAX_LEN,
+            rt=RuntimeCfg(use_pallas=True),
+            policy=ex.parse_policy("bf16:dense:hopper"), device="cuda", **kw)
+
+    live = {}
+
+    def keep_live(sess):
+        lengths = [int(p) if r is not None else 0
+                   for p, r in zip(sess.slot_pos, sess.slots)]
+        live.update(
+            page_map=sess._page_map.clone(),
+            lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+            pools={i: (sess.caches[i]["k"].clone(),
+                       sess.caches[i]["v"].clone()) for i in LIVE_LAYERS})
+
+    sess = session()
+    zero_launch_counts()
+    run = drive(sess, requests(), after_first_decode=keep_live)
+    launches = launch_counts()
+    peak_used = sess.pager.stats()["peak_pages_in_use"]
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for c in sess.caches for t in c.values())
+    # the dense cache: k and v bf16 and pos int32 per layer, slot and row
+    dense_bytes = cfg.num_layers * SLOTS * MAX_LEN * (
+        2 * cfg.num_kv_heads * cfg.head_dim * 2 + 4)
+    del sess
+    check_completed(PAGED_TAG, run)
+    same = sum(run["outs"][u] == dense_run["outs"][u]
+               for u in dense_run["outs"])
+    rows = run["first"]["decode_rows"]
+    pre = float((run["first"]["prefill"]
+                 - dense_run["first"]["prefill"]).abs().max())
+    dec = float((run["first"]["decode"][rows]
+                 - dense_run["first"]["decode"][rows]).abs().max())
+    print(f"[serve] {PAGED_TAG}: greedy tokens equal to the dense "
+          f"bf16:dense:hopper run for {same}/{N_REQUESTS} requests; logits "
+          f"against the dense run: first prefill max_abs_diff={pre}, first "
+          f"decode (active rows {rows}) max_abs_diff={dec}", flush=True)
+    if same != N_REQUESTS:
+        fail(f"{PAGED_TAG}: greedy tokens differ from the dense run")
+    want = dict(dense_launches, paged_attention=0, sparse24_gemm=0,
+                block24_gemm=0)
+    print(f"[serve] {PAGED_TAG}: launches {launches}, expected {want}",
+          flush=True)
+    if launches != want:
+        fail(f"{PAGED_TAG}: kernel launches {launches}, expected {want}")
+
+    # kernel C on the session's own pools
+    q_np = np.random.default_rng(SEED + 5).normal(
+        size=(SLOTS, cfg.num_heads, cfg.head_dim)).astype(np.float32)
+    q = torch.from_numpy(q_np).to("cuda", torch.bfloat16)
+    pa.LAUNCHES = 0
+    outs = {i: pa.paged_decode_attention(q, kp, vp, live["page_map"],
+                                         live["lengths"])
+            for i, (kp, vp) in live["pools"].items()}
+    torch.cuda.synchronize()
+    live_launches = pa.LAUNCHES
+    if live_launches != len(LIVE_LAYERS):
+        fail("paged_decode_attention did not launch kernel C once per layer")
+    live_err = 0.0
+    for i, got in outs.items():
+        kp, vp = live["pools"][i]
+        want_i = pa.paged_flash_decode_plain(q, kp, vp, live["page_map"],
+                                             live["lengths"])
+        err = (got - want_i).abs().max().item()
+        live_err = max(live_err, err)
+        ok = bool(torch.isfinite(got).all()) and err <= PAGED_TOL["bfloat16"]
+        print(f"[paged] live pools of layer {i} (lengths "
+              f"{live['lengths'].tolist()}): max_abs_err={err:.3e} "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"kernel C on layer {i}'s live pools disagrees with its "
+                 "plain version")
+    res = dict(run_times(PAGED_TAG, run),
+               dense_decode_ms_per_step=mean_ms(dense_run["decode_s"]),
+               launches=launches, first_prefill_diff=pre,
+               first_decode_diff=dec, tokens_equal_dense=same,
+               page_size=PAGE_SIZE, pages=PAGES, peak_pages_in_use=peak_used,
+               kv_bytes_paged=pool_bytes, kv_bytes_dense=dense_bytes,
+               live_pool_launches=live_launches,
+               live_pool_max_abs_err=live_err)
+    # decode time of the two layouts in turns, dense run first: dense,
+    # paged (above), paged, dense
+    again = {}
+    for name, paged in (("paged", True), ("dense", False)):
+        again[name] = mean_ms(drive(session(paged), requests())["decode_s"])
+    res.update(decode_ms_per_step_again_paged=again["paged"],
+               decode_ms_per_step_again_dense=again["dense"])
+    print(f"[serve-time] {json.dumps(res)}", flush=True)
+    res.update(profile_decode(session(), requests(),
+                              res["decode_ms_per_step"]))
+    return res
 
 
 def tree_bytes(tree) -> int:
@@ -733,7 +1130,8 @@ def serve_sparse24(params, cfg, requests):
     per_step = 7 * cfg.num_layers
     want = {"gemm": steps,
             "flash_attention": cfg.num_layers * len(run["prefill_s"]),
-            "sparse24_gemm": per_step * steps, "block24_gemm": 0}
+            "paged_attention": 0, "sparse24_gemm": per_step * steps,
+            "block24_gemm": 0}
     print(f"[serve] {tag}: launches {launches} over {len(run['prefill_s'])} "
           f"prefills + {len(run['decode_s'])} decode steps; expected "
           f"{want} ({per_step} packed GEMMs per step)", flush=True)
@@ -770,7 +1168,10 @@ def profile_decode(sess, requests, step_ms: float, steps: int = 4):
     """Device time of a full-batch decode step under torch.profiler: the
     union of kernel intervals per step and the kernels that take most of
     it. ``step_ms`` is the step's wall time measured by ``drive`` (no
-    profiler); one minus their ratio is the device's idle share."""
+    profiler); one minus their ratio is the device's idle share. On the
+    host side: the operators with the most self CPU time per step, and
+    the CUDA runtime calls per step that wait for the device or copy
+    (synchronise, memcpy)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for r in requests[:sess.batch_slots]:
@@ -802,6 +1203,12 @@ def profile_decode(sess, requests, step_ms: float, steps: int = 4):
         return {"device_busy_ms_per_step": None, "device_idle_share": None}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     busy_ms = busy / 1e3 / steps
+    host = [a for a in prof.key_averages()
+            if not str(getattr(a, "device_type", "")).endswith("CUDA")]
+    host_top = sorted((a for a in host if a.key.startswith("aten::")),
+                      key=lambda a: -a.self_cpu_time_total)[:6]
+    waits = {a.key: a.count / steps for a in host
+             if "Synchronize" in a.key or "Memcpy" in a.key}
     gemm_us = sum(t for n, t in by_name.items()
                   if "gemm_kernel" in n or "sparse24_kernel" in n)
     out = {"device_busy_ms_per_step": busy_ms,
@@ -809,17 +1216,19 @@ def profile_decode(sess, requests, step_ms: float, steps: int = 4):
            "kernels_per_step": len(spans) / steps,
            "port_gemm_ms_per_step": gemm_us / 1e3 / steps,
            "top_kernels_ms_per_step": {
-               n[:60]: t / 1e3 / steps for n, t in top}}
+               n[:60]: t / 1e3 / steps for n, t in top},
+           "top_host_ops_self_ms_per_step": {
+               a.key: a.self_cpu_time_total / 1e3 / steps for a in host_top},
+           "host_ops_per_step": sum(a.count for a in host
+                                    if a.key.startswith("aten::")) / steps,
+           "runtime_waits_and_copies_per_step": waits}
     print(f"[profile] {json.dumps(out)}", flush=True)
     return out
 
 
 def check_serve(tag, run, base, launches):
     tol = LOGIT_TOL[tag.split(":")[0]]
-    n_done = len(run["outs"])
-    if n_done != N_REQUESTS or any(len(o) != MAX_NEW
-                                   for o in run["outs"].values()):
-        fail(f"{tag}: {n_done}/{N_REQUESTS} requests completed")
+    check_completed(tag, run)
     on_path = PATH_KERNELS[tag.split(":")[1]]
     for name, n in launches.items():
         if (n <= 0) if name in on_path else (n != 0):
@@ -859,29 +1268,19 @@ def check_serve(tag, run, base, launches):
     print(f"[serve] {tag}: greedy tokens equal to the torch backend for "
           f"{same}/{N_REQUESTS} requests" + ("; " if flips else "")
           + "; ".join(flips), flush=True)
-    n_tok = sum(len(o) for o in run["outs"].values())
-    dec_ms = sorted(1e3 * t for t in run["decode_s"])
-    res = {"policy": tag, "requests": n_done, "tokens": n_tok,
-           "prefill_ms": 1e3 * sum(run["prefill_s"]) / len(run["prefill_s"]),
-           "decode_ms_per_step": sum(dec_ms) / len(dec_ms),
-           "decode_ms_median": dec_ms[len(dec_ms) // 2],
-           # the highest percentile with ten samples beyond it
-           "decode_ms_p67": dec_ms[max(0, len(dec_ms) - 11)],
-           "decode_steps": len(dec_ms),
-           "tok_s": n_tok / run["wall_s"], "wall_s": run["wall_s"],
-           "torch_backend_decode_ms_per_step":
-               1e3 * sum(base["decode_s"]) / len(base["decode_s"]),
-           "torch_backend_prefill_ms":
-               1e3 * sum(base["prefill_s"]) / len(base["prefill_s"]),
-           "launches": launches, "first_prefill_err": pre,
-           "first_decode_err": dec}
+    res = dict(run_times(tag, run),
+               torch_backend_decode_ms_per_step=mean_ms(base["decode_s"]),
+               torch_backend_prefill_ms=mean_ms(base["prefill_s"]),
+               launches=launches, first_prefill_err=pre,
+               first_decode_err=dec)
     print(f"[serve-time] {json.dumps(res)}", flush=True)
     return res
 
 
 # ---------------------------------------------------------------------------
 
-def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows, serve):
+def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
+                paged_rows, sweep_launches, serve):
     def pick(rows, **match):
         return next(r for r in rows
                     if all(r[k] == v for k, v in match.items()))
@@ -928,6 +1327,30 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows, serve):
                 "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                 "shape": f"M={e['M']} K={e['K']} N={e['N']} "
                          f"block={e['block']} bf16->bf16"})
+    # kernel C is on no serving path either (the paged decode step gathers
+    # pages with tensor ops, as the reference's does): its launches are
+    # those of its entry points, paged_decode_attention (paged_phase, and
+    # on the paged run's live pools) and sweep_paged_tilings
+    c = pick(paged_rows, label="serving_ps16")
+    paged = serve[PAGED_TAG]
+    out.append({"name": "paged_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+                "replaces": "src/repro/kernels/paged_attention.py:135",
+                "launches": c["entry_point_launches"]
+                + paged["live_pool_launches"] + sweep_launches,
+                "launches_by_policy": {p: r["launches"]["paged_attention"]
+                                       for p, r in serve.items()},
+                "path": "repro_torch.kernels.paged_attention."
+                        "paged_decode_attention and sweep_paged_tilings",
+                "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                "device_ms": c["device_ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": c["library_ms"],
+                "library_device_ms": c["library_device_ms"],
+                "shape": f"B={c['B']} h={c['h']} kvh={c['kvh']} "
+                         f"hd={c['hd']} ps={c['page_size']} "
+                         f"mp={c['max_pages']} lengths {c['lengths']} "
+                         "bf16 pools"})
     return {"kernels": out}
 
 
@@ -939,9 +1362,12 @@ def main() -> int:
     flash_rows = flash_phase()
     sparse24_rows = sparse24_phase()
     block24_rows = block24_phase()
+    paged_rows = paged_phase()
+    _, sweep_launches = sweep_phase()
     serve = serve_phase()
     print(json.dumps(kernel_line(gemm_rows, flash_rows, sparse24_rows,
-                                 block24_rows, serve)), flush=True)
+                                 block24_rows, paged_rows, sweep_launches,
+                                 serve)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

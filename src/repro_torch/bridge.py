@@ -12,10 +12,12 @@ the port's list of per-layer dicts. It also takes the tree that the
 reference's ``pack_model_params`` returns, whose packed leaves are
 ``PackedWeight`` named tuples of stacked values (n_super, K/2, N) and meta
 (n_super, K/8, N) uint8: each becomes one port ``PackedWeight`` per layer.
+:func:`caches_from_numpy` does the same for a serving cache, dense or
+paged.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -59,15 +61,19 @@ def _tree(tree, device):
     return to_torch(tree, device)
 
 
+def _check_pattern(cfg, what: str) -> None:
+    if cfg.superlayer_pattern != ("attn_dense",):
+        raise NotImplementedError(
+            f"bridge for {what} of block pattern {cfg.superlayer_pattern}: "
+            "only attn_dense stacks are ported so far")
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
     """The JAX param tree (numpy leaves) → the port's params.
 
     ``tree["layers"]["b0"]`` holds the ``attn_dense`` block stacked over
     ``cfg.num_superlayers``; it becomes ``params["layers"][i]``."""
-    if cfg.superlayer_pattern != ("attn_dense",):
-        raise NotImplementedError(
-            f"bridge for block pattern {cfg.superlayer_pattern}: only "
-            "attn_dense stacks are ported so far")
+    _check_pattern(cfg, "params")
     block = tree["layers"]["b0"]
     n = cfg.num_superlayers
 
@@ -85,3 +91,18 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
         "final_norm": to_torch(tree["final_norm"], device),
         "layers": [layer(i, block) for i in range(n)],
     }
+
+
+def caches_from_numpy(tree: Dict[str, Any], cfg,
+                      device=None) -> List[Dict[str, torch.Tensor]]:
+    """A JAX serving cache (numpy leaves) → the port's per-layer list.
+
+    The dense cache ``{"layers": {"b0": {"k": (n_super, B, S, kvh, hd),
+    "v": ..., "pos": (n_super, B, S)}}}`` and the paged one (pools
+    ``(n_super, pages+1, page_size, ...)``) both stack layers on axis 0;
+    layer i becomes ``{"k", "v", "pos"}`` of the rest, bit for bit."""
+    _check_pattern(cfg, "caches")
+    block = tree["layers"]["b0"]
+    return [{key: to_torch(np.asarray(block[key])[i], device)
+             for key in ("k", "v", "pos")}
+            for i in range(cfg.num_superlayers)]

@@ -6,17 +6,23 @@ the policy scope, :func:`policy_from`, :func:`apply_policy`, the packed
 2:4 weight (:class:`PackedWeight`, :func:`pack_model_params`) and
 :func:`matmul`, the dispatcher every linear layer routes through.
 
+It also holds the block-shape cache (:class:`BlockShapeCache`, seeded
+from Table 3, and the module-level :data:`BLOCK_CACHE` that
+``sweep_paged_tilings`` records into) and :func:`parse_pagedsweep_name`.
+
 Policy strings written for the JAX package parse unchanged: ``pallas``
 names the ``hopper`` backend, ``pallas_sparse24`` the ``hopper_sparse24``
-backend and ``jnp`` the ``torch`` backend. Not in this slice:
-``resolve_policy`` (the occupancy advisor), the overlap planner, the
-block-shape cache and the module-level default setters.
+backend, ``pallas_paged`` the ``hopper_paged`` backend and ``jnp`` the
+``torch`` backend. Not ported yet: ``resolve_policy`` (the occupancy
+advisor), ``seed_cache_from_records``, the overlap planner and the
+module-level default setters.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
+import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -29,7 +35,7 @@ SPARSITIES = ("dense", "sparse24")
 
 # JAX backend names → the port's backends.
 BACKEND_ALIASES = {"pallas": "hopper", "pallas_sparse24": "hopper_sparse24",
-                   "jnp": "torch"}
+                   "pallas_paged": "hopper_paged", "jnp": "torch"}
 
 
 # ---------------------------------------------------------------------------
@@ -214,3 +220,107 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
     if pol.precision == "fp8" and w.dim() == 2:
         return be.fp8(x, w, out_dtype=out_dtype, **pol.blocks)
     return be.dense(x, w, out_dtype=out_dtype, **pol.blocks)
+
+
+# ---------------------------------------------------------------------------
+# Block-shape autotune cache (Table 3: preferred tile is precision-dependent)
+# ---------------------------------------------------------------------------
+
+_DTYPE_KEYS = {torch.float8_e4m3fn: "fp8", torch.float8_e5m2: "fp8",
+               torch.bfloat16: "bf16", torch.float32: "fp32"}
+
+
+def _dtype_key(dtype) -> str:
+    if isinstance(dtype, str):      # already a precision key ("fp8", ...)
+        return dtype
+    return _DTYPE_KEYS.get(dtype, str(dtype).split(".")[-1])
+
+
+class BlockShapeCache:
+    """(M, K, N, dtype) → (bm, bn, bk) with best observed latency.
+
+    Seeded with the Table-3 finding — larger tiles pay a per-issue latency
+    premium and the preferred shape is precision-dependent — and refined
+    by :meth:`record` whenever a harness measures a (shape, blocks) pair.
+    """
+
+    # Per-precision preferred blocks, from table3_tile_latency.
+    TABLE3_PREFERRED: Dict[str, Tuple[int, int, int]] = {
+        "fp8": (256, 256, 512),
+        "bf16": (256, 256, 256),
+        "fp32": (128, 128, 256),
+    }
+    # The Table-3 probe grid itself (m, n, k): candidates for autotuning.
+    TABLE3_SHAPES: Tuple[Tuple[int, int, int], ...] = (
+        (128, 128, 128), (256, 256, 128), (128, 128, 256), (256, 256, 256))
+
+    def __init__(self, seed: bool = True):
+        self._best: Dict[Tuple[int, int, int, str],
+                         Tuple[Tuple[int, int, int], float]] = {}
+        if seed:
+            self.seed_from_table3()
+
+    def seed_from_table3(self) -> None:
+        for prec, blocks in self.TABLE3_PREFERRED.items():
+            for (m, n, k) in self.TABLE3_SHAPES:
+                bm, bn, bk = (min(b, d) for b, d in zip(blocks, (m, n, k)))
+                self._best[(m, k, n, prec)] = ((bm, bn, bk), math.inf)
+
+    def record(self, m: int, k: int, n: int, dtype,
+               blocks: Tuple[int, int, int], seconds: float) -> None:
+        key = (m, k, n, _dtype_key(dtype))
+        cur = self._best.get(key)
+        if cur is None or seconds < cur[1]:
+            self._best[key] = (tuple(blocks), seconds)
+
+    def lookup(self, m: int, k: int, n: int, dtype
+               ) -> Optional[Tuple[Optional[int], ...]]:
+        prec = _dtype_key(dtype)
+        hit = self._best.get((m, k, n, prec))
+        if hit is not None:
+            return hit[0]
+        pref = self.TABLE3_PREFERRED.get(prec)
+        if pref is None:
+            return None
+        # Clamp the precision-preferred blocks to the problem; a dim below
+        # 8 gets no hint (None → kernel default).
+        clamped = tuple(min(b, d) for b, d in zip(pref, (m, n, k)))
+        return tuple((c if c >= 8 else None) for c in clamped)
+
+    def entries(self) -> Dict[Tuple[int, int, int, str],
+                              Tuple[Tuple[int, int, int], float]]:
+        """Snapshot of {(m, k, n, prec): (blocks, best seconds)}."""
+        return dict(self._best)
+
+    def __len__(self) -> int:
+        return len(self._best)
+
+
+BLOCK_CACHE = BlockShapeCache()
+
+
+# Precisions the block-evidence ingestion paths understand (dtype-mapped).
+SWEEP_DTYPES = {"fp8": torch.float8_e4m3fn, "bf16": torch.bfloat16,
+                "fp16": torch.float16, "fp32": torch.float32}
+
+
+def parse_pagedsweep_name(name: str
+                          ) -> Optional[Tuple[int, int, int, str,
+                                              Tuple[int, int, int]]]:
+    """Parse a ``pagedsweep/{prec}/{m}x{n}x{k}/{bm}x{bn}x{bk}`` record
+    name (the paged flash-decode tiling sweep) into
+    ``(m, n, k, prec, (bm, bn, bk))`` — m = query rows (slots), n = total
+    KV length, k = head_dim, blocks = (1, page_size, head_dim); None if it
+    isn't one or names a precision outside :data:`SWEEP_DTYPES`."""
+    parts = name.split("/")
+    if len(parts) != 4 or parts[0] != "pagedsweep" \
+            or parts[1] not in SWEEP_DTYPES:
+        return None
+    try:
+        m, n, k = (int(v) for v in parts[2].split("x"))
+        blocks = tuple(int(v) for v in parts[3].split("x"))
+    except ValueError:
+        return None
+    if len(blocks) != 3:
+        return None
+    return m, n, k, parts[1], blocks

@@ -24,7 +24,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gemm", "flash_attention", "sparse24_gemm", "block24_gemm")
+SOURCES = ("gemm", "flash_attention", "sparse24_gemm", "block24_gemm",
+           "paged_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +42,9 @@ SIGNATURES = {
     "block24_gemm": {
         "repro_block24_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _P)},
+    "paged_attention": {
+        "repro_paged_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _I, _I, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

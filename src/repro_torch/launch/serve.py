@@ -12,11 +12,17 @@ the hand-written GEMM kernel and prefill attention through the flash
 kernel. ``--policy bf16:sparse24:hopper`` prunes and packs the weights 2:4
 once and sends every packed linear through the packed 2:4 GEMM kernel;
 ``--backend hopper_sparse24`` (``pallas_sparse24``) names the backend whose
-dense entry prunes and packs per call. Without ``--device`` the session
-runs on ``cuda``.
+dense entry prunes and packs per call. ``--paged`` serves from a pool of
+``--page-size``-row pages (``--pages`` of them; default the dense-equivalent
+capacity) with per-slot page tables; its greedy tokens equal the dense
+cache's. ``--backend hopper_paged`` (``pallas_paged``) names the paged
+substrate's backend, whose GEMMs are ``hopper``'s. Without ``--device``
+the session runs on ``cuda``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --reduced --device cpu --policy bf16:sparse24:hopper
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --reduced --device cpu --paged --pages 24
 """
 from __future__ import annotations
 
@@ -41,10 +47,22 @@ def main(argv=None):
                     help="execution-policy spec, e.g. 'fp8:dense:hopper'")
     ap.add_argument("--backend", default=None,
                     choices=[None, "ref", "torch", "hopper", "hopper_sparse24",
-                             "jnp", "pallas", "pallas_sparse24"],
-                    help="matmul backend (kernels/registry.py); jnp, pallas "
-                         "and pallas_sparse24 are the JAX names of torch, "
-                         "hopper and hopper_sparse24")
+                             "hopper_paged", "jnp", "pallas",
+                             "pallas_sparse24", "pallas_paged"],
+                    help="matmul backend (kernels/registry.py); jnp, "
+                         "pallas, pallas_sparse24 and pallas_paged are the "
+                         "JAX names of torch, hopper, hopper_sparse24 and "
+                         "hopper_paged")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged serving cache (core/paging.py): per-slot "
+                         "page tables over a shared pool; greedy output is "
+                         "token-identical to the dense cache")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="token positions per cache page (must divide "
+                         "--max-len)")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="physical pool size in pages (default: dense-"
+                         "equivalent capacity, slots * max_len/page_size)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--seed", type=int, default=0)
@@ -64,13 +82,19 @@ def main(argv=None):
     if args.backend:
         policy = dataclasses.replace(
             policy, backend=ex.BACKEND_ALIASES.get(args.backend, args.backend))
-    rt = RuntimeCfg(use_pallas=policy.backend in ("hopper", "hopper_sparse24"))
+    rt = RuntimeCfg(use_pallas=policy.backend in (
+        "hopper", "hopper_sparse24", "hopper_paged"))
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=device)
     sess = ServeSession(params, cfg, batch_slots=args.slots,
                         max_len=args.max_len, rt=rt, policy=policy,
-                        verbose_policy=True, device=device)
+                        verbose_policy=True, paged=args.paged,
+                        page_size=args.page_size, pages=args.pages,
+                        device=device)
+    if args.paged:
+        print(f"[serve] paged cache: page_size={sess.page_size} "
+              f"pages={sess.pages}")
 
     rng = np.random.default_rng(args.seed)
     for uid in range(args.requests):

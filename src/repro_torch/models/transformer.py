@@ -1,15 +1,17 @@
 """Decoder stack for ``attn_dense`` architectures (llama3 and its kin).
 
-Twin of ``repro/models/transformer.py`` for the dense serving slice:
+Twin of ``repro/models/transformer.py`` for the serving slices:
 ``init_params``, ``prefill``, ``decode_step`` (with ``_decode_attn``) and
-``init_cache``. Where the reference scans over parameters stacked on a
-leading layer axis, the port keeps a Python list with one dict per layer
-and loops over it (PyTorch runs eagerly; there is no trace to keep small).
+``init_cache``, and the paged twins ``paged_decode_step`` (with
+``_paged_decode_attn``) and ``init_paged_cache``. Where the reference
+scans over parameters stacked on a leading layer axis, the port keeps a
+Python list with one dict per layer and loops over it (PyTorch runs
+eagerly; there is no trace to keep small).
 
 Decode writes the new token's K/V into the cache in place, saving a copy
 of the whole cache per step; ``decode_step`` returns the same cache
-objects it was given. Other block kinds (MoE, local attention, SSM,
-hybrid) are later slices.
+objects it was given; the paged step does the same to its page pools.
+Other block kinds (MoE, local attention, SSM, hybrid) are later slices.
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ from repro_torch.models.layers import (
 
 Params = Dict[str, Any]
 Caches = List[Dict[str, torch.Tensor]]
+
+# Block kinds whose K/V/pos leaves become page pools in the paged cache.
+PAGED_KINDS = ("attn_dense", "attn_global", "attn_moe", "shared_attn")
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -112,41 +117,123 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
 # Decode
 # ---------------------------------------------------------------------------
 
-def _decode_attn(x, p, cache, posb: torch.Tensor, cfg: ArchConfig,
-                 rt: RuntimeCfg):
-    """One-token attention over the dense cache, each slot at its own
-    position ``posb`` (B,). The cache is updated in place."""
+def _decode_qkv(x, p, posb: torch.Tensor, cfg: ArchConfig, rt: RuntimeCfg):
+    """The decode step's q (B, 1, h, hd) and k/v (B, 1, kvh, hd), roped at
+    each slot's position."""
     b = x.shape[0]
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    g = h // kvh
     q = dense(x, p["w_q"], cfg, rt, "q").reshape(b, 1, h, hd)
     k = dense(x, p["w_k"], cfg, rt, "k").reshape(b, 1, kvh, hd)
     v = dense(x, p["w_v"], cfg, rt, "v").reshape(b, 1, kvh, hd)
     q = attn_mod.apply_rope(q, posb[:, None], cfg.rope_theta)
     k = attn_mod.apply_rope(k, posb[:, None], cfg.rope_theta)
+    return q, k, v
 
-    kc, vc, posc = cache["k"], cache["v"], cache["pos"]
-    smax = kc.shape[1]
-    bidx = torch.arange(b, device=x.device)
-    kc[bidx, posb] = k[:, 0].to(kc.dtype)
-    vc[bidx, posb] = v[:, 0].to(vc.dtype)
-    posc[bidx, posb] = posb.to(posc.dtype)
 
+def _decode_attend(q, kc, vc, posc, posb: torch.Tensor, cfg: ArchConfig,
+                   out_dtype) -> torch.Tensor:
+    """One query row per slot against cache rows in the dense layout: kc/vc
+    (B, S, kvh, hd), posc (B, S). Row i is attended when it was written
+    (``posc >= 0``) at a position up to the slot's own and ``i <= pos``.
+    The dense and the paged decode steps both end here, so their arithmetic
+    cannot drift. Returns (B, 1, h*hd) in ``out_dtype``."""
+    b, smax = kc.shape[:2]
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = hd ** -0.5
     # GQA kept grouped: (b, kv, g, hd) × (b, s, kv, hd), f32 accumulation.
-    q5 = q.reshape(b, kvh, g, hd)
+    q5 = q.reshape(b, kvh, h // kvh, hd)
     s = torch.einsum("bkgd,bskd->bkgs", q5.float(), kc.float()) * scale
     # posc = -1 marks unwritten (or freed) rows; each slot attends only to
     # rows its own occupant wrote at positions <= its own pos.
     pcol = posb[:, None]
     valid = (posc >= 0) & (posc <= pcol) \
-        & (torch.arange(smax, device=x.device)[None, :] <= pcol)
+        & (torch.arange(smax, device=q.device)[None, :] <= pcol)
     s = torch.where(valid[:, None, None, :], s,
                     torch.full_like(s, attn_mod.NEG_INF))
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", pr.to(vc.dtype).float(), vc.float())
-    o = o.reshape(b, 1, h * hd).to(x.dtype)
+    return o.reshape(b, 1, h * hd).to(out_dtype)
+
+
+def _decode_attn(x, p, cache, posb: torch.Tensor, cfg: ArchConfig,
+                 rt: RuntimeCfg):
+    """One-token attention over the dense cache, each slot at its own
+    position ``posb`` (B,). The cache is updated in place."""
+    q, k, v = _decode_qkv(x, p, posb, cfg, rt)
+    kc, vc, posc = cache["k"], cache["v"], cache["pos"]
+    bidx = torch.arange(x.shape[0], device=x.device)
+    kc[bidx, posb] = k[:, 0].to(kc.dtype)
+    vc[bidx, posb] = v[:, 0].to(vc.dtype)
+    posc[bidx, posb] = posb.to(posc.dtype)
+    o = _decode_attend(q, kc, vc, posc, posb, cfg, x.dtype)
     return dense(o, p["w_o"], cfg, rt, "o")
+
+
+def _paged_decode_attn(x, p, cache, posb: torch.Tensor,
+                       page_map: torch.Tensor, cfg: ArchConfig,
+                       rt: RuntimeCfg):
+    """Decode attention over the pooled paged cache.
+
+    ``cache`` holds pools: k/v ``(n_pages+1, page_size, kvh, hd)``, pos
+    ``(n_pages+1, page_size)``; ``page_map`` is ``(B, max_pages)`` int32
+    (``-1`` = unallocated). The last physical page is a *trash* page owned
+    by no slot: writes for slots whose current page entry is ``-1`` (idle
+    slots), or whose position is at or past ``max_pages * page_size``, land
+    there, and gathers of unallocated logical pages read from it. Its rows
+    are never attended to: an unallocated logical page's row indices all
+    exceed the slot's ``pos`` (tables are prefixes), so the causal mask
+    kills them.
+
+    Exactness: the new token is written in place, the slot's pages are
+    gathered back into the dense ``(B, max_len, ...)`` layout (row i holds
+    position i; ``max_pages * page_size == max_len``), and the dense path's
+    own arithmetic (:func:`_decode_attend`) runs on it. Masked rows get the
+    same NEG_INF and a softmax weight of exactly 0, so paged greedy decode
+    equals dense token for token.
+    """
+    b = x.shape[0]
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _decode_qkv(x, p, posb, cfg, rt)
+    kp, vp, pp = cache["k"], cache["v"], cache["pos"]
+    ps = kp.shape[1]
+    mp = page_map.shape[1]
+    trash = kp.shape[0] - 1
+
+    # write the current token at (physical page, in-page offset)
+    lpage = torch.clamp(posb // ps, 0, mp - 1)
+    off = posb % ps
+    phys = torch.gather(page_map, 1, lpage[:, None])[:, 0].long()
+    phys = torch.where((phys >= 0) & (posb < mp * ps), phys,
+                       torch.full_like(phys, trash))
+    kp[phys, off] = k[:, 0].to(kp.dtype)
+    vp[phys, off] = v[:, 0].to(vp.dtype)
+    pp[phys, off] = posb.to(pp.dtype)
+
+    # gather back into the dense (b, max_len, ...) layout
+    safe = torch.where(page_map >= 0, page_map,
+                       torch.full_like(page_map, trash)).long()
+    kc = kp[safe].reshape(b, mp * ps, kvh, hd)
+    vc = vp[safe].reshape(b, mp * ps, kvh, hd)
+    posc = pp[safe].reshape(b, mp * ps)
+    o = _decode_attend(q, kc, vc, posc, posb, cfg, x.dtype)
+    return dense(o, p["w_o"], cfg, rt, "o")
+
+
+def _decode(params: Params, tokens: torch.Tensor, caches: Caches, pos,
+            cfg: ArchConfig, rt: RuntimeCfg, attn):
+    b = tokens.shape[0]
+    posb = torch.as_tensor(pos, device=tokens.device).to(torch.long)
+    posb = posb.expand(b) if posb.dim() == 0 else posb
+    x = embed_tokens(tokens, params["embed"]).to(rt.act_dtype)
+    for p, cache in zip(params["layers"], caches):
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        x = x + attn(h, p["attn"], cache, posb)
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + swiglu_mlp(h, p["mlp"], cfg, rt)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = lm_logits(x[:, 0], params["head"], cfg.vocab_size,
+                       policy=ex.policy_from(cfg, rt))
+    return logits, caches
 
 
 def decode_step(params: Params, tokens: torch.Tensor, caches: Caches, pos,
@@ -154,19 +241,22 @@ def decode_step(params: Params, tokens: torch.Tensor, caches: Caches, pos,
     """One decoding step. tokens (B, 1); ``pos`` a scalar (lockstep) or a
     (B,) vector (continuous batching). Every position must be below the
     cache length. Returns (logits (B, Vp) f32, caches updated in place)."""
-    b = tokens.shape[0]
-    posb = torch.as_tensor(pos, device=tokens.device).to(torch.long)
-    posb = posb.expand(b) if posb.dim() == 0 else posb
-    x = embed_tokens(tokens, params["embed"]).to(rt.act_dtype)
-    for p, cache in zip(params["layers"], caches):
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        x = x + _decode_attn(h, p["attn"], cache, posb, cfg, rt)
-        h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + swiglu_mlp(h, p["mlp"], cfg, rt)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = lm_logits(x[:, 0], params["head"], cfg.vocab_size,
-                       policy=ex.policy_from(cfg, rt))
-    return logits, caches
+    return _decode(params, tokens, caches, pos, cfg, rt,
+                   lambda h, p, cache, posb: _decode_attn(h, p, cache, posb,
+                                                          cfg, rt))
+
+
+def paged_decode_step(params: Params, tokens: torch.Tensor, caches: Caches,
+                      pos, page_map: torch.Tensor, cfg: ArchConfig,
+                      rt: RuntimeCfg = DEFAULT_RT):
+    """``decode_step`` over a paged cache (``init_paged_cache`` layout).
+    ``page_map`` (B, max_pages) int32 is shared by every layer: one
+    physical page id names the same rows in each layer's pools. Returns
+    (logits (B, Vp) f32, caches updated in place)."""
+    page_map = page_map.to(device=tokens.device, dtype=torch.int32)
+    return _decode(params, tokens, caches, pos, cfg, rt,
+                   lambda h, p, cache, posb: _paged_decode_attn(
+                       h, p, cache, posb, page_map, cfg, rt))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -179,5 +269,28 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
              "v": torch.zeros((batch, max_len, kvh, hd), dtype=dtype,
                               device=device),
              "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                               device=device)}
+            for _ in range(cfg.num_layers)]
+
+
+def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
+                     page_size: int, pages: int, dtype=torch.bfloat16,
+                     device=None) -> Caches:
+    """Paged twin of ``init_cache``: each layer's K/V/pos become pools of
+    ``pages + 1`` physical pages (the extra one is the trash page, see
+    ``_paged_decode_attn``) of ``page_size`` rows each, shared by all
+    ``batch`` slots: k/v zeroed, pos -1. Requires ``max_len % page_size ==
+    0`` so the gathered layout matches the dense one row for row."""
+    check_supported(cfg)
+    if max_len % page_size:
+        raise ValueError(f"max_len={max_len} not a multiple of "
+                         f"page_size={page_size}")
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    p1 = pages + 1
+    return [{"k": torch.zeros((p1, page_size, kvh, hd), dtype=dtype,
+                              device=device),
+             "v": torch.zeros((p1, page_size, kvh, hd), dtype=dtype,
+                              device=device),
+             "pos": torch.full((p1, page_size), -1, dtype=torch.int32,
                                device=device)}
             for _ in range(cfg.num_layers)]

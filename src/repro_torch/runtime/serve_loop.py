@@ -1,22 +1,32 @@
 """Serving: prefill/decode step builders + the continuous-batching session.
 
-Twin of ``repro/runtime/serve_loop.py`` for the dense cache. Requests join
-and leave fixed slots between steps; each slot decodes at its own position;
-admission is one bulk prefill written into the slot's cache rows, and its
-logits give the request's first token. The decode step runs over every slot,
-idle ones included (token 0 at position 0), as the reference's jitted step
-does: the fp8 policies take one activation amax over all slots, so idle rows
-are part of the numerics.
+Twin of ``repro/runtime/serve_loop.py``. Requests join and leave fixed
+slots between steps; each slot decodes at its own position; admission is one
+bulk prefill written into the slot's cache rows, and its logits give the
+request's first token. The decode step runs over every slot, idle ones
+included (token 0 at position 0), as the reference's jitted step does: the
+fp8 policies take one activation amax over all slots, so idle rows are part
+of the numerics.
+
+With ``paged=True`` the session keeps its K/V in a pool of ``page_size``-row
+pages (``models.transformer.init_paged_cache``) with a per-slot page table
+(:class:`~repro_torch.core.paging.PageAllocator`): admission reserves the
+prompt plus one position, each decode step appends a page where a slot needs
+one (a request the pool cannot grow finishes truncated), and freed pages are
+scrubbed before reuse. Greedy paged decode equals dense decode token for
+token. ``export_slot``/``import_slot`` hand one in-flight request, with its
+cache state, to another session: the whole slot row on dense sessions, only
+the pages in use on paged ones.
 
 Under a sparse24 policy the session prunes and packs the eligible weights
 once, at construction, after moving them to its device
 (``execution.pack_model_params``), so every step streams packed bytes.
 
 Where the reference donates the cache to its jitted helpers, the port
-updates the cache tensors in place. Not in this slice: sampling
+updates the cache tensors in place. Not ported yet: sampling
 (``temperature > 0``; the port serves greedy, the only mode whose tokens
-can be held against the reference), the paged cache, speculative decoding,
-slot export/import and the ``auto`` policy resolver.
+can be held against the reference), speculative decoding, the ``auto``
+policy resolver, lanes and telemetry; ``decode_once`` is synchronous.
 """
 from __future__ import annotations
 
@@ -29,9 +39,12 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import execution as ex
+from repro_torch.core import paging
+from repro_torch.kernels import paged_attention  # noqa: F401 (hopper_paged)
 from repro_torch.models.layers import DEFAULT_RT, RuntimeCfg
 from repro_torch.models.transformer import (
-    Caches, decode_step, init_cache, prefill)
+    Caches, decode_step, init_cache, init_paged_cache, paged_decode_step,
+    prefill)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,6 +84,22 @@ def make_serve_step(cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT,
     return serve_step
 
 
+def make_paged_serve_step(cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT,
+                          policy: Optional[ex.ExecutionPolicy] = None):
+    """``make_serve_step`` over the paged cache layout: the step takes an
+    extra ``page_map`` (B, max_pages) int32 operand (``-1`` =
+    unallocated). Greedy, like the dense step, and equal to it."""
+    if policy is not None:
+        cfg, rt = ex.apply_policy(cfg, rt, policy)
+
+    def paged_serve_step(params, tokens, caches, pos, page_map):
+        logits, caches = paged_decode_step(params, tokens, caches, pos,
+                                           page_map, cfg, rt)
+        nxt = torch.argmax(logits, dim=-1)
+        return nxt[:, None].to(torch.int32), logits, caches
+    return paged_serve_step
+
+
 # ---------------------------------------------------------------------------
 # Continuous batching (host-side slot manager)
 # ---------------------------------------------------------------------------
@@ -84,6 +113,31 @@ class Request:
     done: bool = False
 
 
+@dataclasses.dataclass
+class SlotExport:
+    """One in-flight request's complete per-slot serving state, detached
+    from its session: the cache slice (per layer, the slot's row of each
+    dense leaf, or on a paged session only the pages it wrote), the
+    slot-local write position and the last token (the next decode input).
+    Produced by :meth:`ServeSession.export_slot`, consumed by
+    :meth:`ServeSession.import_slot`; greedy decode resumes exactly on a
+    session with the same config, ``max_len`` and cache layout."""
+    request: Request
+    caches: Caches                   # per layer: {k, v, pos}
+    pos: int
+    token: int
+    # Paged handoff metadata (0/0 on dense exports): paged leaves are
+    # shaped (pages, page_size, ...), so handoff volume is O(pages in use).
+    pages: int = 0
+    page_size: int = 0
+
+
+def export_nbytes(export: SlotExport) -> int:
+    """Bytes of cache state a handoff moves."""
+    return sum(t.numel() * t.element_size()
+               for layer in export.caches for t in layer.values())
+
+
 def _write_slot_cache(full: Caches, new: Caches, slot: int) -> None:
     """Insert a batch-1 prefill cache into ``slot``: k/v/pos write their
     first S rows (the prompt's positions)."""
@@ -93,6 +147,14 @@ def _write_slot_cache(full: Caches, new: Caches, slot: int) -> None:
             f[key][slot, :row.shape[0]] = row.to(f[key].dtype)
 
 
+def _restore_slot_cache(full: Caches, state: Caches, slot: int) -> None:
+    """Write one exported slot's cache state (each leaf the slot's whole
+    row) into ``slot``: the receiving half of a dense handoff."""
+    for f, s in zip(full, state):
+        for key in ("k", "v", "pos"):
+            f[key][slot] = s[key].to(f[key].dtype)
+
+
 def _clear_slot_cache(caches: Caches, slot: int) -> None:
     """Reset ``slot`` to its init state: k/v zeroed, pos rows -1 (unwritten
     to the decode mask). A freed slot keeps nothing of its occupant."""
@@ -100,6 +162,58 @@ def _clear_slot_cache(caches: Caches, slot: int) -> None:
         c["k"][slot] = 0
         c["v"][slot] = 0
         c["pos"][slot] = -1
+
+
+# -- paged-cache twins of the slot helpers ----------------------------------
+# ``phys`` vectors are padded to the per-slot table width with the trash
+# page's index; trash writes only ever carry scrub values.
+
+def _paged_write_prompt(full: Caches, new: Caches,
+                        phys: torch.Tensor) -> None:
+    """Paged ``_write_slot_cache``: the batch-1 prefill cache's rows are
+    padded to ``max_len`` (k/v with zeros, pos with -1, the scrubbed-page
+    values), split into pages and written to the slot's physical pages
+    ``phys`` (max_pages,), unallocated entries naming the trash page."""
+    mp = phys.shape[0]
+    for f, n in zip(full, new):
+        for key in ("k", "v", "pos"):
+            pool, row = f[key], n[key][0]
+            ps = pool.shape[1]
+            slab = torch.full((mp * ps,) + row.shape[1:],
+                              -1 if key == "pos" else 0, dtype=pool.dtype,
+                              device=pool.device)
+            slab[:row.shape[0]] = row.to(pool.dtype)
+            pool[phys] = slab.reshape((mp, ps) + row.shape[1:])
+
+
+def _paged_clear_slot(caches: Caches, phys: torch.Tensor) -> None:
+    """Paged ``_clear_slot_cache``: scrub the slot's released physical
+    pages back to their init state (k/v zeroed, pos -1) before the
+    allocator reuses them, so free-list reuse never leaks a previous
+    tenant's KV."""
+    for c in caches:
+        c["k"][phys] = 0
+        c["v"][phys] = 0
+        c["pos"][phys] = -1
+
+
+def _paged_take_slot(caches: Caches, page_ids: List[int]) -> Caches:
+    """One slot's pages in use, gathered for export: per layer, k/v/pos
+    shaped (n_used, page_size, ...). Copies, not views."""
+    idx = torch.as_tensor(page_ids, dtype=torch.long,
+                          device=caches[0]["k"].device)
+    return [{key: c[key][idx] for key in ("k", "v", "pos")} for c in caches]
+
+
+def _paged_put_slot(caches: Caches, state: Caches,
+                    page_ids: List[int]) -> None:
+    """Scatter an exported slot's pages into freshly allocated ones: the
+    receiving half of an O(pages) handoff."""
+    idx = torch.as_tensor(page_ids, dtype=torch.long,
+                          device=caches[0]["k"].device)
+    for c, s in zip(caches, state):
+        for key in ("k", "v", "pos"):
+            c[key][idx] = s[key].to(device=c[key].device, dtype=c[key].dtype)
 
 
 def _to_device(tree, device):
@@ -113,10 +227,11 @@ def _to_device(tree, device):
 
 
 class ServeSession:
-    """Fixed-slot continuous batching over one shared dense KV cache.
+    """Fixed-slot continuous batching over one shared KV cache (dense, or
+    paged with ``paged=True``).
 
     ``submit``/``step``/``run`` drive a single FIFO queue; the slot-level
-    API is ``has_free_slot`` → ``admit(req)`` → ``decode_once()``.
+    API is ``can_admit(req)`` → ``admit(req)`` → ``decode_once()``.
     ``last_logits`` holds the logits of the latest prefill (1, Vp) or
     decode step (slots, Vp).
     """
@@ -125,15 +240,12 @@ class ServeSession:
                  max_len: int, rt: RuntimeCfg = DEFAULT_RT,
                  temperature: float = 0.0, eos_id: int = -1,
                  policy=None, verbose_policy: bool = False,
-                 paged: bool = False, speculative=None, device=None):
+                 paged: bool = False, page_size: int = 16,
+                 pages: Optional[int] = None, speculative=None, device=None):
         if temperature > 0:
             raise NotImplementedError(
                 "sampled decode (temperature > 0) is not ported; the port "
                 "serves greedy")
-        if paged:
-            raise NotImplementedError(
-                "the paged cache (and the paged flash-decode kernel) is "
-                "ported in a later slice; serve with paged=False")
         if speculative is not None:
             raise NotImplementedError(
                 "speculative decoding is ported in a later slice")
@@ -156,9 +268,29 @@ class ServeSession:
         self.max_len = max_len
         self.eos_id = eos_id
         self.slots: List[Optional[Request]] = [None] * batch_slots
-        self.caches = init_cache(cfg, batch_slots, max_len,
-                                 device=self.device)
-        self.step_fn = make_serve_step(cfg, rt)
+        self.paged = bool(paged)
+        if self.paged:
+            if max_len % page_size:
+                raise ValueError(f"max_len={max_len} must be a multiple of "
+                                 f"page_size={page_size}")
+            mp = max_len // page_size
+            if pages is None:
+                pages = batch_slots * mp      # dense-equivalent capacity
+            self.page_size, self.pages = int(page_size), int(pages)
+            self.pager = paging.PageAllocator(
+                self.pages, self.page_size, mp, batch_slots,
+                state_block_tokens=paging.state_block_tokens(cfg))
+            self.caches = init_paged_cache(cfg, batch_slots, max_len,
+                                           self.page_size, self.pages,
+                                           device=self.device)
+            self._sync_page_map()
+            self.step_fn = make_paged_serve_step(cfg, rt)
+        else:
+            self.page_size, self.pages = 0, 0
+            self.pager = None
+            self.caches = init_cache(cfg, batch_slots, max_len,
+                                     device=self.device)
+            self.step_fn = make_serve_step(cfg, rt)
         self.prefill_fn = make_prefill_step(cfg, rt)
         # next write position per slot (slot-local: every request starts
         # at position 0 regardless of when it was admitted)
@@ -182,22 +314,58 @@ class ServeSession:
     def has_free_slot(self) -> bool:
         return any(s is None for s in self.slots)
 
+    def free_slots(self) -> int:
+        return sum(s is None for s in self.slots)
+
+    def can_admit(self, req: Request) -> bool:
+        """Admission headroom: a free slot and (paged) enough free pages
+        for the prompt plus its first decode write. Dense: exactly
+        ``has_free_slot``."""
+        if not self.has_free_slot():
+            return False
+        if not self.paged:
+            return True
+        return self.pager.can_admit_tokens(len(req.prompt) + 1)
+
+    def _phys_padded(self, page_ids: List[int]) -> torch.Tensor:
+        """(max_pages,) scatter vector: the slot's physical pages, padded
+        with the trash page's index (the pool row past the last page)."""
+        out = np.full((self.pager.max_pages_per_slot,), self.pages, np.int64)
+        out[:len(page_ids)] = page_ids
+        return torch.as_tensor(out, device=self.device)
+
+    def _sync_page_map(self) -> None:
+        """The allocator's tables as the step's device int32 operand."""
+        self._page_map = torch.as_tensor(self.pager.page_map(),
+                                         device=self.device)
+
     def admit(self, req: Request) -> int:
         """Bulk-prefill ``req`` into a free slot and take its first output
         token (greedy) from the prefill logits. Active slots do not step.
         Returns the slot index (the request may already be done if
-        ``max_new == 1``)."""
+        ``max_new == 1``). Paged: raises ``PagesExhausted`` if the pool
+        cannot hold the prompt plus one position (gate on
+        :meth:`can_admit`)."""
         slot = next((i for i, s in enumerate(self.slots) if s is None), None)
         if slot is None:
             raise RuntimeError("admit() with no free slot")
         lp = len(req.prompt)
         if not 0 < lp < self.max_len:
             raise ValueError(f"prompt length {lp} not in [1, {self.max_len})")
+        if self.paged:
+            # reserve pages BEFORE the prefill: lp prompt positions plus
+            # the first decode write at position lp
+            page_ids = self.pager.alloc_slot(slot, lp + 1)
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None, :]
         with self._policy_scope():
             logits, pcaches = self.prefill_fn(self.params, prompt)
-        _write_slot_cache(self.caches, pcaches, slot)
+        if self.paged:
+            _paged_write_prompt(self.caches, pcaches,
+                                self._phys_padded(page_ids))
+            self._sync_page_map()
+        else:
+            _write_slot_cache(self.caches, pcaches, slot)
         self.last_logits = logits
         tok = int(torch.argmax(logits[0]))
         self.slots[slot] = req
@@ -210,33 +378,140 @@ class ServeSession:
     def free_slot(self, slot: int):
         self.slots[slot] = None
         self.slot_pos[slot] = 0
-        _clear_slot_cache(self.caches, slot)
+        if self.paged:
+            released = self.pager.free_slot(slot)
+            # scrub the released pages BEFORE the free list hands them out
+            _paged_clear_slot(self.caches, self._phys_padded(released))
+            self._sync_page_map()
+        else:
+            _clear_slot_cache(self.caches, slot)
         self.tokens[slot, 0] = 0
 
-    def export_slot(self, slot: int):
-        raise NotImplementedError(
-            "live slot handoff (export_slot/import_slot) is ported with "
-            "the host runtime, a later slice")
+    # -- live cache handoff ----------------------------------------------------
+    def export_slot(self, slot: int) -> SlotExport:
+        """Detach ``slot``'s in-flight request with its complete serving
+        state and clear the slot as :meth:`free_slot` does. The request is
+        not finished; it resumes wherever the export is imported."""
+        req = self.slots[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} is empty")
+        pos, token = int(self.slot_pos[slot]), int(self.tokens[slot, 0])
+        if self.paged:
+            page_ids = self.pager.slot_pages(slot)
+            out = SlotExport(request=req,
+                             caches=_paged_take_slot(self.caches, page_ids),
+                             pos=pos, token=token, pages=len(page_ids),
+                             page_size=self.page_size)
+        else:
+            state = [{key: c[key][slot].clone() for key in ("k", "v", "pos")}
+                     for c in self.caches]
+            out = SlotExport(request=req, caches=state, pos=pos, token=token)
+        self.free_slot(slot)
+        return out
 
-    def import_slot(self, export):
-        raise NotImplementedError(
-            "live slot handoff (export_slot/import_slot) is ported with "
-            "the host runtime, a later slice")
+    def handoff_pages(self, slot: int) -> int:
+        """Pages a handoff of ``slot`` would move (0 on dense sessions,
+        whose handoffs move the whole max_len row)."""
+        return len(self.pager.slot_pages(slot)) if self.paged else 0
+
+    def can_accept_pages(self, n_pages: int, page_size: int) -> bool:
+        """Import-side headroom check before the exporter detaches a slot:
+        a free slot and, paged, the same page size and enough free pages
+        for the ``n_pages`` the handoff would move."""
+        if not self.has_free_slot():
+            return False
+        if not self.paged:
+            return True
+        return (page_size == self.page_size
+                and n_pages <= self.pager.max_pages_per_slot
+                and self.pager.can_alloc(n_pages))
+
+    def can_accept_handoff(self, export: SlotExport) -> bool:
+        """Would :meth:`import_slot` succeed right now?"""
+        return self.can_accept_pages(export.pages, export.page_size)
+
+    def import_slot(self, export: SlotExport) -> int:
+        """Resume an exported in-flight request in a free slot of this
+        session. Both sessions must share the cache layout (same config and
+        ``max_len``, and the same page size when paged; checked leaf by
+        leaf). Returns the slot index."""
+        slot = next((i for i, s in enumerate(self.slots) if s is None), None)
+        if slot is None:
+            raise RuntimeError("import_slot() with no free slot")
+        if self.paged != bool(export.pages or export.page_size):
+            raise ValueError(
+                "cache layout mismatch: paged and dense sessions cannot "
+                "hand off slots to each other")
+        if self.paged and export.page_size != self.page_size:
+            raise ValueError(f"page_size mismatch: export {export.page_size} "
+                             f"vs session {self.page_size}")
+        # paged leaves compare their page geometry (the export carries the
+        # pages in use, not the pool); dense leaves the whole slot row
+        ours = [(key, tuple(c[key].shape[1:]))
+                for c in self.caches for key in ("k", "v", "pos")]
+        theirs = [(key, tuple(s[key].shape[1:] if self.paged
+                              else s[key].shape))
+                  for s in export.caches for key in ("k", "v", "pos")]
+        if ours != theirs:
+            raise ValueError(
+                "cache layout mismatch: the exporting session's slot state "
+                "does not fit this session (same cfg, max_len and page_size "
+                "required for a live handoff)")
+        if self.paged:
+            # may raise PagesExhausted: gate on can_accept_handoff() first
+            page_ids = self.pager.import_slot(slot, export.pages,
+                                              export.pos + 1)
+            _paged_put_slot(self.caches, export.caches, page_ids)
+            self._sync_page_map()
+        else:
+            _restore_slot_cache(self.caches, export.caches, slot)
+        self.slots[slot] = export.request
+        self.slot_pos[slot] = export.pos
+        self.tokens[slot, 0] = export.token
+        return slot
+
+    def _grow_pages(self) -> List[Request]:
+        """Lazy page append before a paged decode step: every active slot
+        gets a page for the position this step writes. A slot the pool
+        cannot grow finishes truncated (refused, never crashed). Returns
+        the requests finished so."""
+        done = []
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            need = int(self.slot_pos[i]) + 1
+            if self.pager.pages_for(need) > len(self.pager.slot_pages(i)):
+                try:
+                    self.pager.extend_slot(i, need)
+                    self._sync_page_map()
+                except paging.PagesExhausted:
+                    req.done = True
+                    self.completed.append(req)
+                    self.free_slot(i)
+                    done.append(req)
+        return done
 
     def decode_once(self) -> List[Request]:
         """One decode step over every slot; returns the requests that
-        completed this step."""
+        completed this step (paged: those the pool truncated first)."""
         if self.n_active == 0:
             return []
+        done = self._grow_pages() if self.paged else []
+        if self.n_active == 0:
+            return done
         posv = torch.as_tensor(self.slot_pos.astype(np.int64),
                                device=self.device)
         with self._policy_scope():
-            nxt, logits, self.caches = self.step_fn(
-                self.params, self.tokens, self.caches, posv)
+            if self.paged:
+                nxt, logits, self.caches = self.step_fn(
+                    self.params, self.tokens, self.caches, posv,
+                    self._page_map)
+            else:
+                nxt, logits, self.caches = self.step_fn(
+                    self.params, self.tokens, self.caches, posv)
         self.last_logits = logits
         nxt_np = nxt[:, 0].cpu().numpy()     # waits for the step
         self.tokens = nxt
-        done = []
         for i, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -245,6 +520,10 @@ class ServeSession:
             req.out.append(tok)
             if self._maybe_finish(i, tok):
                 done.append(req)
+            elif self.paged:
+                # utilization accounting: positions written so far plus
+                # the pending next write
+                self.pager.note_tokens(i, int(self.slot_pos[i]) + 1)
         return done
 
     def _maybe_finish(self, slot: int, tok: int) -> bool:
@@ -262,8 +541,18 @@ class ServeSession:
         self.queue.append(req)
 
     def _admit_from_queue(self):
-        while self.queue and self.has_free_slot():
+        while self.queue and self.can_admit(self.queue[0]):
             self.admit(self.queue.pop(0))
+        if (self.paged and self.queue and self.n_active == 0
+                and self.pager.pages_in_use == 0
+                and not self.can_admit(self.queue[0])):
+            # nothing running, nothing allocated, and the head request
+            # still does not fit: it never will
+            req = self.queue[0]
+            raise paging.PagesExhausted(
+                f"request uid={req.uid} needs "
+                f"{self.pager.pages_for(len(req.prompt) + 1)} pages but the "
+                f"pool only has {self.pages}")
 
     def step(self):
         """Admit what fits, then one decode step for all active slots."""

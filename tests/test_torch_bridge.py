@@ -87,3 +87,35 @@ def test_configs_are_copies_of_the_reference():
 def dataclasses_equal(a, b) -> bool:
     import dataclasses
     return dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_caches_unstack_bit_for_bit(paged):
+    """A dense cache (n_super, B, S, ...) and a paged one (pools on axis 1)
+    with written rows: layer i of each leaf arrives bit for bit (bf16 over
+    uint16, pos as int32)."""
+    from repro.models import init_cache, init_paged_cache
+    cfg = get_reduced("llama3-8b")
+    if paged:
+        cache = init_paged_cache(cfg, 2, 32, 8, 5)
+    else:
+        cache = init_cache(cfg, 2, 32)
+    rng = np.random.default_rng(7)
+    block = cache["layers"]["b0"]
+    block = {"k": jnp.asarray(rng.normal(size=block["k"].shape),
+                              jnp.bfloat16),
+             "v": jnp.asarray(rng.normal(size=block["v"].shape),
+                              jnp.bfloat16),
+             "pos": jnp.asarray(rng.integers(-1, 32, block["pos"].shape),
+                                jnp.int32)}
+    tree = jax.tree.map(np.asarray, {"layers": {"b0": block}})
+    port = bridge.caches_from_numpy(tree, cfg)
+    assert len(port) == cfg.num_layers
+    for i, layer in enumerate(port):
+        assert layer["k"].dtype == torch.bfloat16
+        assert layer["pos"].dtype == torch.int32
+        for key in ("k", "v"):
+            assert bridge.to_numpy_bits(layer[key]).tobytes() == \
+                tree["layers"]["b0"][key][i].view(np.uint16).tobytes()
+        np.testing.assert_array_equal(layer["pos"].numpy(),
+                                      tree["layers"]["b0"]["pos"][i])

@@ -12,6 +12,7 @@ from repro_torch.core import fp8 as tfp8
 from repro_torch.core import sparsity as tsp
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fp8_matmul as fm
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sparse24_matmul as sm
 
 
@@ -117,3 +118,49 @@ def test_cuda_pack_matches_the_cpu_bytes():
         assert torch.equal(gpu.meta.cpu(), cpu.meta)
         assert torch.equal(gpu.values.cpu().view(torch.uint8),
                            cpu.values.view(torch.uint8))
+
+
+def _paged_inputs(B, h, kvh, hd, ps, mp, dtype, seed):
+    """Pools of B*mp+1 pages; slot b owns pages in a shuffled order, the
+    last slot none (an idle slot)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pool = B * mp + 1
+    q = torch.randn((B, h, hd), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((pool, ps, kvh, hd), generator=gen,
+                     device="cuda").to(dtype)
+    vp = torch.randn((pool, ps, kvh, hd), generator=gen,
+                     device="cuda").to(dtype)
+    perm = torch.randperm(pool - 1, generator=torch.Generator().manual_seed(
+        seed)).to(torch.int32)
+    pm = perm[:B * mp].reshape(B, mp).clone()
+    pm[-1] = -1
+    return q, kp, vp, pm.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,ps,lengths", [
+    (torch.float32, 16, 8, (13, 32, 1)),
+    (torch.bfloat16, 128, 16, (129, 78, 1, 0, 0)),
+    (torch.bfloat16, 128, 8, (64, 3, 0)),
+    (torch.bfloat16, 64, 32, (100, 256, 0)),
+])
+def test_cuda_paged_decode_kernel_matches_plain(dtype, hd, ps, lengths):
+    """Rows with no valid position (an idle slot, a length of 0) give 0 on
+    both sides. f32 pools: JAX's own tolerance, 2e-5; bf16 pools: both
+    sides sum the same bf16 values in f32 in another order, 1e-4."""
+    _need_cuda()
+    B = len(lengths)
+    mp = max(1, -(-max(lengths) // ps))
+    kvh, h = (2, 4) if hd == 16 else (8, 32)
+    q, kp, vp, pm = _paged_inputs(B, h, kvh, hd, ps, mp, dtype, seed=6)
+    if lengths[-1] == 0 and B > 3:
+        pm[-2, 1:] = -1           # a slot with a page but length 0
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = pa.LAUNCHES
+    got = pa.paged_flash_decode(q, kp, vp, pm, ln)
+    assert pa.LAUNCHES == before + 1
+    want = pa.paged_flash_decode_plain(q, kp, vp, pm, ln)
+    tol = 2e-5 if dtype == torch.float32 else 1e-4
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    empty = torch.tensor([n == 0 for n in lengths], device="cuda")
+    assert (got[empty] == 0).all()

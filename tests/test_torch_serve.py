@@ -52,7 +52,7 @@ def _run_port(sess):
     the logits behind every token: {(uid, index): margin}."""
     margins = {}
     while sess.queue or sess.n_active:
-        while sess.queue and sess.has_free_slot():
+        while sess.queue and sess.can_admit(sess.queue[0]):
             req = sess.queue.pop(0)
             sess.admit(req)
             margins[(req.uid, 0)] = _margin(sess.last_logits[0])
@@ -64,7 +64,7 @@ def _run_port(sess):
     return {r.uid: r.out for r in sess.completed}, margins
 
 
-def _serve_both(jspec, tspec, use_pallas, dtype):
+def _serve_both(jspec, tspec, use_pallas, dtype, **session_kw):
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" \
         else (jnp.bfloat16, torch.bfloat16)
     params = init_params(jax.random.PRNGKey(0), CFG, dtype=jdt)
@@ -72,11 +72,11 @@ def _serve_both(jspec, tspec, use_pallas, dtype):
     jsess = jsl.ServeSession(
         params, CFG, batch_slots=SLOTS, max_len=MAX_LEN,
         rt=JRt(act_dtype=jdt, param_dtype=jdt, use_pallas=use_pallas),
-        policy=jex.parse_policy(jspec))
+        policy=jex.parse_policy(jspec), **session_kw)
     tsess = tsl.ServeSession(
         tparams, CFG, batch_slots=SLOTS, max_len=MAX_LEN,
         rt=TRt(act_dtype=tdt, use_pallas=use_pallas),
-        policy=tex.parse_policy(tspec), device="cpu")
+        policy=tex.parse_policy(tspec), device="cpu", **session_kw)
     for uid, prompt in enumerate(_prompts()):
         jsess.submit(jsl.Request(uid=uid, prompt=prompt, max_new=MAX_NEW))
         tsess.submit(tsl.Request(uid=uid, prompt=prompt, max_new=MAX_NEW))
@@ -85,8 +85,10 @@ def _serve_both(jspec, tspec, use_pallas, dtype):
     return want, got, margins
 
 
-def check_tokens(jspec, tspec, use_pallas, dtype):
-    want, got, margins = _serve_both(jspec, tspec, use_pallas, dtype)
+def check_tokens(jspec, tspec, use_pallas, dtype, **session_kw):
+    """``session_kw`` (e.g. ``paged=True``) goes to both sessions."""
+    want, got, margins = _serve_both(jspec, tspec, use_pallas, dtype,
+                                     **session_kw)
     assert sorted(got) == sorted(want) == list(range(len(PROMPT_LENS)))
     for uid in want:
         assert len(got[uid]) == len(want[uid]) == MAX_NEW
@@ -118,23 +120,21 @@ def test_session_needs_a_device_on_a_cpu_only_machine():
 
 
 def test_unported_session_modes_raise():
-    for kw in ({"paged": True}, {"speculative": 2}, {"policy": "auto"},
+    """Sampling, speculation and the policy resolver are not ported (the
+    paged cache and the slot handoff are: test_torch_serve_paged.py)."""
+    for kw in ({"speculative": 2}, {"policy": "auto"},
                {"temperature": 0.7}):
         with pytest.raises(NotImplementedError):
             tsl.ServeSession({}, CFG, batch_slots=1, max_len=8,
                              device="cpu", **kw)
-    sess = tsl.ServeSession({}, CFG, batch_slots=1, max_len=8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sess.export_slot(0)
-    with pytest.raises(NotImplementedError):
-        sess.import_slot(None)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, repro_torch.runtime.serve_loop, "
             "repro_torch.launch.serve, repro_torch.kernels.ops, "
             "repro_torch.bridge, repro_torch.core.sparsity, "
-            "repro_torch.kernels.sparse24_matmul\n"
+            "repro_torch.kernels.sparse24_matmul, repro_torch.core.paging, "
+            "repro_torch.kernels.paged_attention\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")
