@@ -23,6 +23,13 @@ their entry points (``kernels.paged_attention.paged_decode_attention`` and
 ``sweep_paged_tilings``, ``kernels.ops.block24_matmul``) are driven at
 their phases' shapes, and C also on the paged run's live pools.
 
+Kernels A, D and E are timed with their operands out of L2 (rotating
+copies where they total less than its 50 MB), checked against their plain
+versions and for bit-equal repeats, and print the tile and K splits the
+planner gave each shape. ``--kernels-only [--src DIR/src]`` runs just that,
+on this checkout or another, so that two commits' kernels can be timed by
+the same code in one call.
+
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
 result line, when there is no CUDA device, when the port's sources are
@@ -89,6 +96,67 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# The H100's L2 cache. A kernel whose operands total less than this is timed
+# over rotating copies of them (cold_ms), so that each call reads them from
+# device memory, as a serving step does: it streams 15 GB of weights, which
+# never stay in L2.
+L2_BYTES = 50 * 2**20
+
+
+def cold_ms(fn, operands, iters: int):
+    """Device ms per call of ``fn(*operands)`` with the operands out of L2:
+    where they total less than L2_BYTES, the calls rotate through enough
+    copies of them to exceed twice L2. The time is the kernels' own
+    (``device_ms``), so a call that the host issues more slowly than the
+    card runs it is still timed as the card runs it. Returns (ms, copies)."""
+    n_bytes = sum(t.numel() * t.element_size() for t in operands)
+    n = 1 if n_bytes >= L2_BYTES else -(-2 * L2_BYTES // n_bytes) + 1
+    sets = [tuple(operands)] + [tuple(t.clone() for t in operands)
+                                for _ in range(n - 1)]
+    turn = iter(range(1 << 62))
+
+    def call():
+        return fn(*sets[next(turn) % n])
+
+    for _ in range(3):  # a profile now and then records no kernel at all
+        ms = device_ms(call, iters)
+        if ms > 0:
+            return ms, n
+    fail("torch.profiler recorded no kernel in three profiles of one call")
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host microseconds per call of ``fn`` issued back to back (the device
+    runs behind; a synchronise before and after)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / calls
+
+
+def bit_equal(a, b) -> bool:
+    """The same bits (``torch.equal`` would take -0.0 for +0.0)."""
+    import torch
+    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def plan_note(M, N, K, kind) -> str:
+    """The tile and K splits the planner gives this shape (kernels/
+    gemm_plan.py), or a note where the checkout under test has none."""
+    import torch
+    try:
+        from repro_torch.kernels import gemm_plan
+    except ImportError:
+        return "no planner in this checkout"
+    return gemm_plan.launch_plan(M, N, K, kind,
+                                 torch.device("cuda", 0))[0].describe()
+
+
 def device_ms(fn, iters: int = 50) -> float:
     """Mean device time per call of ``fn``: the summed durations of the
     kernels it launches, from torch.profiler over ``iters`` calls (after
@@ -119,12 +187,19 @@ def bound_ms(n_bytes: float, n_ops: float, kind: str):
 # Kernel A: the GEMM against its plain version
 # ---------------------------------------------------------------------------
 
-# (label, M, K, N): decode (M = slots), the LM head, prefill at both prompt
-# lengths, and a ragged K.
+# (label, M, K, N): llama3-8b's projections at decode (M = slots: gate/up,
+# q/o, k/v, down and the LM head) and at prefill (M = 128, and the ragged
+# 77 of the second prompt length), and a ragged K.
 GEMM_SHAPES = (
     ("decode_mlp", 4, 4096, 14336),
+    ("decode_qo", 4, 4096, 4096),
+    ("decode_kv", 4, 4096, 1024),
+    ("decode_down", 4, 14336, 4096),
     ("decode_head", 4, 4096, 128256),
     ("prefill_mlp", 128, 4096, 14336),
+    ("prefill_qo", 128, 4096, 4096),
+    ("prefill_kv", 128, 4096, 1024),
+    ("prefill_down", 128, 14336, 4096),
     ("prefill_ragged", 77, 4096, 14336),
     ("ragged_k", 77, 4000, 1000),
 )
@@ -154,24 +229,30 @@ def gemm_phase():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for label, M, K, N in GEMM_SHAPES:
+        plan = plan_note(M, N, K, "gemm")
+        print(f"[gemm] {label} M={M} K={K} N={N}: plan {plan}", flush=True)
         for kind in GEMM_TYPES:
             x, w = gemm_inputs(M, K, N, kind, gen)
             for out_dtype in (torch.float32, torch.bfloat16):
                 got = fm.fp8_matmul(x, w, out_dtype)
+                again = fm.fp8_matmul(x, w, out_dtype)
                 want = fm.fp8_matmul_plain(x, w, out_dtype)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 scale = want.float().abs().max().item()
                 name = str(out_dtype).split(".")[-1]
                 rel = err / max(scale, 1e-30)
+                same = bit_equal(got, again)
                 ok = bool(torch.isfinite(got).all()) and \
-                    rel <= GEMM_REL_TOL[name]
+                    rel <= GEMM_REL_TOL[name] and same
                 print(f"[gemm] {label} M={M} K={K} N={N} {kind}->{name}: "
-                      f"max_abs_err={err:.3e} rel={rel:.2e} "
-                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                      f"max_abs_err={err:.3e} rel={rel:.2e} repeat "
+                      f"bit-equal={same} {'ok' if ok else 'MISMATCH'}",
+                      flush=True)
                 if not ok:
                     fail(f"GEMM {label} {kind}->{name} disagrees with its "
-                         f"plain version (rel {rel:.2e})")
+                         f"plain version (rel {rel:.2e}) or with itself "
+                         f"(bit-equal {same})")
             # times at the output type the main path uses there
             out_dtype = torch.float32 if (label == "decode_head"
                                           or kind != "bf16") \
@@ -182,11 +263,12 @@ def gemm_phase():
                    - fm.fp8_matmul_plain(x, w, out_dtype).float()
                    ).abs().max().item()
             iters = 20 if N > 20000 else 50
-            ms = time_ms(lambda: fm.fp8_matmul(x, w, out_dtype), iters)
+            ms, copies = cold_ms(lambda a, b: fm.fp8_matmul(a, b, out_dtype),
+                                 (x, w), iters)
             plain = time_ms(lambda: fm.fp8_matmul_plain(x, w, out_dtype), 5)
             lib, lib_note = None, None
             if kind == "bf16":
-                lib = time_ms(lambda: torch.matmul(x, w), iters)
+                lib = cold_ms(torch.matmul, (x, w), iters)[0]
             elif kind == "e4m3":
                 lib, lib_note = scaled_mm_ms(x, w, out_dtype, iters)
             else:
@@ -197,7 +279,10 @@ def gemm_phase():
                    "out": str(out_dtype).split(".")[-1], "max_abs_err": err,
                    "ms": ms, "plain_ms": plain, "library_ms": lib,
                    "library_note": lib_note, "bound_ms": bms,
-                   "bound_by": by}
+                   "bound_by": by, "plan": plan, "operand_copies": copies}
+            if M <= 16:
+                row["host_us_per_call"] = host_us(
+                    lambda: fm.fp8_matmul(x, w, out_dtype))
             rows.append(row)
             print(f"[gemm-time] {json.dumps(row)}", flush=True)
             del x, w
@@ -217,8 +302,10 @@ def scaled_mm_ms(x_q, w_q, out_dtype, iters):
     one = torch.ones((), device=x_q.device)
     note = f"torch._scaled_mm, M padded {M}->{M + pad}, B column-major"
     try:
-        ms = time_ms(lambda: torch._scaled_mm(
-            xp, wc, scale_a=one, scale_b=one, out_dtype=out_dtype), iters)
+        # (clones keep B column-major)
+        ms = cold_ms(lambda a, b: torch._scaled_mm(
+            a, b, scale_a=one, scale_b=one, out_dtype=out_dtype),
+            (xp, wc), iters)[0]
     except (RuntimeError, TypeError) as e:
         return None, f"torch._scaled_mm raised: {str(e).splitlines()[0]}"
     return ms, note
@@ -346,10 +433,14 @@ def sparse24_phase():
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
     for label, M, K, N in SPARSE24_SHAPES:
+        plan = plan_note(M, N, K, "sparse24")
+        print(f"[sparse24] {label} M={M} K={K} N={N}: plan {plan}",
+              flush=True)
         for kind in SPARSE24_TYPES:
             x, pw = packed_inputs(M, K, N, kind, gen)
             for out_dtype in (torch.float32, torch.bfloat16):
                 got = sm.sparse24_matmul(x, pw.values, pw.meta, out_dtype)
+                again = sm.sparse24_matmul(x, pw.values, pw.meta, out_dtype)
                 want = sm.sparse24_matmul_plain(x, pw.values, pw.meta,
                                                 out_dtype)
                 torch.cuda.synchronize()
@@ -357,14 +448,17 @@ def sparse24_phase():
                 scale = want.float().abs().max().item()
                 name = str(out_dtype).split(".")[-1]
                 rel = err / max(scale, 1e-30)
+                same = bit_equal(got, again)
                 ok = bool(torch.isfinite(got).all()) and \
-                    rel <= GEMM_REL_TOL[name]
+                    rel <= GEMM_REL_TOL[name] and same
                 print(f"[sparse24] {label} M={M} K={K} N={N} {kind}->{name}: "
-                      f"max_abs_err={err:.3e} rel={rel:.2e} "
-                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                      f"max_abs_err={err:.3e} rel={rel:.2e} repeat "
+                      f"bit-equal={same} {'ok' if ok else 'MISMATCH'}",
+                      flush=True)
                 if not ok:
                     fail(f"packed 2:4 GEMM {label} {kind}->{name} disagrees "
-                         f"with its plain version (rel {rel:.2e})")
+                         f"with its plain version (rel {rel:.2e}) or with "
+                         f"itself (bit-equal {same})")
             # times at the main path's output type (the activation, bf16)
             out_dtype = torch.bfloat16
             err = (sm.sparse24_matmul(x, pw.values, pw.meta, out_dtype).float()
@@ -372,12 +466,13 @@ def sparse24_phase():
                                               out_dtype).float()
                    ).abs().max().item()
             iters = 50
-            ms = time_ms(lambda: sm.sparse24_matmul(x, pw.values, pw.meta,
-                                                    out_dtype), iters)
+            ms, copies = cold_ms(
+                lambda a, v, m: sm.sparse24_matmul(a, v, m, out_dtype),
+                (x, pw.values, pw.meta), iters)
             plain = time_ms(lambda: sm.sparse24_matmul_plain(
                 x, pw.values, pw.meta, out_dtype), 5)
             w_dense = sp.unpack_24(pw.values, pw.meta).to(torch.bfloat16)
-            lib = time_ms(lambda: torch.matmul(x, w_dense), iters)
+            lib = cold_ms(torch.matmul, (x, w_dense), iters)[0]
             slib, snote, serr = semi_structured_ms(w_dense, x, iters)
             vbytes = pw.values.element_size()
             n_bytes = M * K * 2 + (K // 2) * N * vbytes + (K // 8) * N \
@@ -390,7 +485,12 @@ def sparse24_phase():
                    "library_note": "torch.matmul on the unpacked bf16 weight",
                    "sparse_library_ms": slib, "sparse_library_note": snote,
                    "sparse_library_max_abs_err": serr,
-                   "bound_ms": bms, "bound_by": by}
+                   "bound_ms": bms, "bound_by": by, "plan": plan,
+                   "operand_copies": copies}
+            if M <= 16:
+                row["host_us_per_call"] = host_us(
+                    lambda: sm.sparse24_matmul(x, pw.values, pw.meta,
+                                               out_dtype))
             rows.append(row)
             print(f"[sparse24-time] {json.dumps(row)}", flush=True)
             if label == "decode_gate_up" and kind == "bf16":
@@ -458,34 +558,41 @@ def block24_phase():
         fail("ops.block24_matmul did not launch kernel E once per call")
     rows = []
     for (M, K, N, block), (x, packed, kept) in zip(BLOCK24_SHAPES, inputs):
+        plan = plan_note(M, N, K // 2, "block24")
         for out_dtype in (torch.float32, torch.bfloat16):
             got = sm.block24_matmul(x, packed, kept, block, out_dtype)
+            again = sm.block24_matmul(x, packed, kept, block, out_dtype)
             want = sm.block24_matmul_plain(x, packed, kept, block, out_dtype)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             scale = want.float().abs().max().item()
             name = str(out_dtype).split(".")[-1]
             rel = err / max(scale, 1e-30)
-            ok = bool(torch.isfinite(got).all()) and rel <= GEMM_REL_TOL[name]
+            same = bit_equal(got, again)
+            ok = bool(torch.isfinite(got).all()) and \
+                rel <= GEMM_REL_TOL[name] and same
             print(f"[block24] M={M} K={K} N={N} block={block} bf16->{name}: "
-                  f"max_abs_err={err:.3e} rel={rel:.2e} "
-                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                  f"max_abs_err={err:.3e} rel={rel:.2e} repeat bit-equal="
+                  f"{same} plan {plan} {'ok' if ok else 'MISMATCH'}",
+                  flush=True)
             if not ok:
                 fail(f"block-2:4 GEMM M={M} block={block} ->{name} disagrees "
-                     f"with its plain version (rel {rel:.2e})")
+                     f"with its plain version (rel {rel:.2e}) or with itself "
+                     f"(bit-equal {same})")
         out_dtype = torch.bfloat16
         err = (sm.block24_matmul(x, packed, kept, block, out_dtype).float()
                - sm.block24_matmul_plain(x, packed, kept, block,
                                          out_dtype).float()
                ).abs().max().item()
-        ms = time_ms(lambda: sm.block24_matmul(x, packed, kept, block,
-                                               out_dtype), 50)
+        ms, copies = cold_ms(
+            lambda a, b: sm.block24_matmul(a, b, kept, block, out_dtype),
+            (x, packed), 50)
         plain = time_ms(lambda: sm.block24_matmul_plain(
             x, packed, kept, block, out_dtype), 5)
         cols = torch.cat([torch.arange(i * block, (i + 1) * block,
                                        device="cuda") for i in kept])
         xk = x[:, cols].contiguous()
-        lib = time_ms(lambda: torch.matmul(xk, packed), 50)
+        lib = cold_ms(torch.matmul, (xk, packed), 50)[0]
         n_bytes = M * (K // 2) * 2 + (K // 2) * N * 2 + M * N * 2
         bms, by = bound_ms(n_bytes, 2.0 * M * N * (K // 2), "bf16")
         row = {"label": f"M{M}_block{block}", "M": M, "K": K, "N": N,
@@ -494,7 +601,8 @@ def block24_phase():
                "library_note": "torch.matmul on x's kept columns gathered "
                                "beforehand (the gather is left out: no one "
                                "call computes E's function)",
-               "bound_ms": bms, "bound_by": by,
+               "bound_ms": bms, "bound_by": by, "plan": plan,
+               "operand_copies": copies,
                "entry_point_launches": entry_launches}
         rows.append(row)
         print(f"[block24-time] {json.dumps(row)}", flush=True)
@@ -711,13 +819,13 @@ def sweep_phase():
 # Set-up
 # ---------------------------------------------------------------------------
 
-def preflight() -> str:
+def preflight(src: Path = SRC) -> str:
     """Refuse to run without the port's sources or a CUDA device."""
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"[smoke] the port's sources are not under {SRC}: run this "
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"[smoke] the port's sources are not under {src}: run this "
               "script from a checkout of the repository", file=sys.stderr)
         sys.exit(2)
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     import torch
     if not torch.cuda.is_available():
         print("[smoke] no CUDA device: this script measures the port on "
@@ -799,8 +907,11 @@ def run_times(tag, run) -> dict:
     """The end-to-end metrics of one ``drive`` run."""
     n_tok = sum(len(o) for o in run["outs"].values())
     dec_ms = sorted(1e3 * t for t in run["decode_s"])
+    pre_ms = sorted(1e3 * t for t in run["prefill_s"])
     return {"policy": tag, "requests": len(run["outs"]), "tokens": n_tok,
             "prefill_ms": mean_ms(run["prefill_s"]),
+            "prefill_ms_median": pre_ms[len(pre_ms) // 2],
+            "prefill_ms_first": 1e3 * run["prefill_s"][0],
             "decode_ms_per_step": sum(dec_ms) / len(dec_ms),
             "decode_ms_median": dec_ms[len(dec_ms) // 2],
             # the highest percentile with ten samples beyond it
@@ -1164,6 +1275,23 @@ def check_pack_on_cpu(params, packed):
         fail("the packed weight differs between the card and the CPU")
 
 
+def is_port_gemm(kernel_name: str) -> bool:
+    """Kernels A, D and E by their CUDA names (this tree's shared tile
+    kernel, or the per-kernel names of earlier trees)."""
+    return any(k in kernel_name for k in ("tile_kernel", "gemm_kernel",
+                                          "sparse24_kernel"))
+
+
+def short_name(kernel_name: str) -> str:
+    """A kernel's name without namespaces and return type, cut to 70
+    characters (the tile kernels differ only in their template
+    arguments)."""
+    for noise in ("void ", "(anonymous namespace)::", "tile_gemm::",
+                  "at::native::"):
+        kernel_name = kernel_name.replace(noise, "")
+    return kernel_name[:70]
+
+
 def profile_decode(sess, requests, step_ms: float, steps: int = 4):
     """Device time of a full-batch decode step under torch.profiler: the
     union of kernel intervals per step and the kernels that take most of
@@ -1209,14 +1337,13 @@ def profile_decode(sess, requests, step_ms: float, steps: int = 4):
                       key=lambda a: -a.self_cpu_time_total)[:6]
     waits = {a.key: a.count / steps for a in host
              if "Synchronize" in a.key or "Memcpy" in a.key}
-    gemm_us = sum(t for n, t in by_name.items()
-                  if "gemm_kernel" in n or "sparse24_kernel" in n)
+    gemm_us = sum(t for n, t in by_name.items() if is_port_gemm(n))
     out = {"device_busy_ms_per_step": busy_ms,
            "device_idle_share": 1.0 - busy_ms / step_ms,
            "kernels_per_step": len(spans) / steps,
            "port_gemm_ms_per_step": gemm_us / 1e3 / steps,
            "top_kernels_ms_per_step": {
-               n[:60]: t / 1e3 / steps for n, t in top},
+               short_name(n): t / 1e3 / steps for n, t in top},
            "top_host_ops_self_ms_per_step": {
                a.key: a.self_cpu_time_total / 1e3 / steps for a in host_top},
            "host_ops_per_step": sum(a.count for a in host
@@ -1354,9 +1481,46 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
     return {"kernels": out}
 
 
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, check and time kernels A, D and E only, "
+                         "print their rows and no result line")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the src/ directory whose repro_torch to build and "
+                         "measure (default: this checkout's); with "
+                         "--kernels-only, another commit's checkout can be "
+                         "timed by the same code in the same call")
+    return ap.parse_args(argv)
+
+
+def kernels_only(smi: str) -> int:
+    """Kernels A, D and E at their phases' shapes: checked, timed, one
+    summary line (label, type, ms, library ms) per kernel."""
+    build_phase()
+    summary = {"nvidia_smi": smi, "src": str(ARGS.src),
+               "gemm": gemm_phase(), "sparse24": sparse24_phase(),
+               "block24": block24_phase()}
+    keep = ("label", "M", "K", "N", "type", "values", "block", "ms",
+            "library_ms", "bound_ms", "plan", "host_us_per_call")
+    for name in ("gemm", "sparse24", "block24"):
+        summary[name] = [{k: r[k] for k in keep if k in r}
+                         for r in summary[name]]
+    print(f"[kernels-only] {json.dumps(summary)}", flush=True)
+    return 0
+
+
+ARGS = None
+
+
 def main() -> int:
+    global ARGS
+    ARGS = parse_args(sys.argv[1:])
     import torch
-    smi = preflight()
+    smi = preflight(ARGS.src.resolve())
+    if ARGS.kernels_only:
+        return kernels_only(smi)
     build_phase()
     gemm_rows = gemm_phase()
     flash_rows = flash_phase()

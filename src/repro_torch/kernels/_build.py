@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, compiled by ``nvcc`` for ``sm_90a`` into ``build/repro_torch_kernels/``
 at the repository root. The sources may include the headers
-``csrc/*.cuh``. The file name carries a hash of the source, every header
+``csrc/*.cuh`` (the tile GEMM of kernels A, D and E, ``tile_gemm.cuh``,
+sets its kernels' dynamic shared-memory limit itself). The file name carries a hash of the source, every header
 and the flags, so an edited kernel or header is rebuilt and a stale
 library is never loaded. :func:`build` starts one
 ``nvcc`` per source, all at once, and waits for them together.
@@ -32,16 +33,19 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C signatures: (name, argument types). Every entry returns an int status.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "gemm": {"repro_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)},
+    # ... the operands and shapes, then the plan (kernels/gemm_plan.py):
+    # tile, splits, steps per split, workspace, counters; then the stream
+    "gemm": {"repro_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P, _P, _P)},
     "flash_attention": {
         "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _P)},
     "sparse24_gemm": {
         "repro_sparse24_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _P)},
+                                _I, _I, _I, _P, _P, _P)},
     "block24_gemm": {
         "repro_block24_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _P)},
+                               _I, _I, _I, _P, _P, _P)},
     "paged_attention": {
         "repro_paged_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _P)},

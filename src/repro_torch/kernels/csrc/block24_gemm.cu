@@ -15,111 +15,124 @@
 //
 // Design: the TPU kernel walked the kept blocks along a sequential grid axis
 // whose BlockSpec index map looked kept_idx up at compile time. Here kept is
-// a device int32 array and one thread block per BM x BN output tile runs the
-// K loop over the packed K/2 rows. Each K step stages a BK x BN tile of
-// W_packed and the matching BM x BK tile of X, whose 8-column chunks each
-// find their dense column through kept (block % 8 == 0 keeps a chunk inside
-// one block), in shared memory with 16-byte loads, and multiplies them with
-// WMMA 16x16x16 bf16 fragments into f32 accumulators: the tile GEMM of
-// kernel A (wmma_tile.cuh), which stages W_packed as kernel A stages B.
-// Ragged M, N and K/2 are masked (the TPU kernel asserted divisibility).
-#include "wmma_tile.cuh"
+// a device int32 array, and the tile GEMM of tile_gemm.cuh (shared with
+// kernels A and D) runs the K loop over the packed K/2 rows, split over
+// enough blocks to fill the card (kernels/gemm_plan.py), through its 4-stage
+// TMA ring: W_packed's tile is copied as kernel A copies B, and X's tile is
+// an address map -- with block % 64 == 0 a K step's 64 packed columns are 64
+// dense columns of one kept block, one TMA copy from the column kept names
+// (other blocks take element loads through kept). Decode multiplies with
+// mma.sync m16n8k16, prefill with wgmma m64n128k16. Ragged M, N and K/2 are
+// zero-filled (the TPU kernel asserted divisibility).
+#include "tile_gemm.cuh"
 
 namespace {
 
-using namespace wmma_tile;
+using namespace tile_gemm;
 
-// The dense column of packed column kg.
-__device__ __forceinline__ int dense_col(const int* __restrict__ kept,
-                                         int block, int kg) {
-  return kept[kg / block] * block + kg % block;
-}
+template <class C>
+struct Block24Op {
+  static constexpr int STAGE_BYTES = round1024(C::A_BYTES) + C::B_BYTES;
+  static constexpr int BUF_BYTES = 0;
+  static constexpr bool B_KMAJOR = false;
 
-// Stage a ROWS x COLS tile of packed columns [c0, c0 + COLS) of X's gathered
-// view (n_rows, n_cols = K/2) in shared memory (leading dim LD). With ``vec``
-// (16-byte aligned base, K % 8 == 0 and block % 8 == 0) an 8-column chunk is
-// one 16-byte load; otherwise each element is loaded on its own.
-template <int ROWS, int COLS, int LD, int NT>
-__device__ __forceinline__ void load_x_gathered(
-    const uint16_t* __restrict__ x, int n_rows, int K, int n_cols,
-    const int* __restrict__ kept, int block, int r0, int c0, bool vec,
-    __nv_bfloat16* dst, int tid) {
-  constexpr int CPR = COLS / 8;
-  constexpr int CHUNKS = ROWS * CPR;
-  static_assert(CHUNKS % NT == 0, "tile must split evenly over threads");
-  constexpr int PER = CHUNKS / NT;
-  uint4 raw[PER];
+  CUtensorMap mx, mw;  // used where tma_x / tma_w
+  const uint16_t* x;
+  const uint16_t* w;
+  const int* kept;
+  int M, N, K, block;
+  bool tma_x, tma_w;
+
+  // The dense column of packed column kg.
+  __device__ __forceinline__ int dense_col(int kg) const {
+    return kept[kg / block] * block + kg % block;
+  }
+
+  // X's tile is an address map: with block % 64 == 0 the BK = 64 packed
+  // columns of a step come from 64 dense columns of one kept block, one
+  // copy (past K/2 the copy starts past K, which TMA fills with zeros).
+  __device__ __forceinline__ void load(int k0, unsigned char* st, int m0,
+                                       int n0, int tid, uint64_t* bar) const {
+    unsigned char* bs = st + round1024(C::A_BYTES);
+    const int Kh = K / 2;
+    if (tid == 0) {
+      mbar_expect(bar, (tma_x ? C::A_BYTES : 0) + (tma_w ? C::B_BYTES : 0));
+      if (tma_x) tma_2d(st, &mx, k0 < Kh ? dense_col(k0) : K, m0, bar);
+      if (tma_w)
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int c = tid + i * NT;
-    const int gr = r0 + c / CPR, gc = c0 + (c % CPR) * 8;
-    raw[i] = make_uint4(0, 0, 0, 0);
-    if (gr >= n_rows || gc >= n_cols) continue;
-    const uint16_t* row = x + (size_t)gr * K;
-    if (vec && gc + 8 <= n_cols) {
-      raw[i] = *reinterpret_cast<const uint4*>(row + dense_col(kept, block, gc));
-    } else {
-      uint32_t w[4] = {0, 0, 0, 0};
-      for (int j = 0; j < 8 && gc + j < n_cols; ++j)
-        w[j >> 1] |= uint32_t(row[dense_col(kept, block, gc + j)])
-                     << (16 * (j & 1));
-      raw[i] = make_uint4(w[0], w[1], w[2], w[3]);
+        for (int h = 0; h < C::BN / 64; ++h)
+          tma_2d(bs + h * C::BK * 128, &mw, n0 + 64 * h, k0, bar);
     }
+    if (!tma_x) {
+      for (int c = tid; c < C::BM * C::BK / 8; c += C::NT) {
+        const int r = c % C::BM, cc = (c / C::BM) * 8;
+        const int gr = m0 + r, gk = k0 + cc;
+        const int valid = (gr < M && gk < Kh) ? min(8, Kh - gk) : 0;
+        const uint16_t* row = x + (size_t)gr * K;
+        uint32_t v[4] = {0, 0, 0, 0};
+        for (int j = 0; j < valid; ++j)
+          v[j >> 1] |= uint32_t(row[dense_col(gk + j)]) << (16 * (j & 1));
+        *reinterpret_cast<uint4*>(st + a_off(r, cc)) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    if (!tma_w)
+      load_tile<uint16_t, C::BK, C::BN, C::NT>(
+          w, Kh, N, k0, n0,
+          [=](int r, int c) { return bs + b_off<C::BK>(r, c); }, tid);
   }
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int c = tid + i * NT;
-    *reinterpret_cast<uint4*>(dst + (c / CPR) * LD + (c % CPR) * 8) = raw[i];
+
+  __device__ __forceinline__ int operands(unsigned char* st, unsigned char*,
+                                           const unsigned char*& A,
+                                           const unsigned char*& B,
+                                           int) const {
+    A = st;
+    B = st + round1024(C::A_BYTES);
+    return WROTE_NONE;
   }
-}
+};
 
-template <int BM, int BN, int BK, int WM, int WN>
-__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
-block24_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
-               const int* __restrict__ kept, void* __restrict__ c_, int M,
-               int N, int K, int block, int out_type, int vec_x, int vec_w) {
-  typedef Tile<BM, BN, BK, WM, WN> Tl;
-  const int Kh = K / 2;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, tid = threadIdx.x;
-  tile_gemm<BM, BN, BK, WM, WN>(
-      Kh, c_, M, N, out_type,
-      [=](int k0, __nv_bfloat16* As, __nv_bfloat16* Bs) {
-        load_x_gathered<BM, BK, Tl::LDA, Tl::NT>(x, M, K, Kh, kept, block, m0,
-                                                 k0, vec_x, As, tid);
-        load_tile<IN_BF16, BK, BN, Tl::LDB, Tl::NT>(w, Kh, N, k0, n0, vec_w,
-                                                    Bs, tid);
-      });
-}
-
-template <int BM, int BN, int BK, int WM, int WN>
-void launch(const void* x, const void* w, const int* kept, void* c, int M,
-            int N, int K, int block, int out_type, int vec_x, int vec_w,
-            cudaStream_t stream) {
-  typedef Tile<BM, BN, BK, WM, WN> Tl;
-  block24_kernel<BM, BN, BK, WM, WN><<<Tl::grid(M, N), Tl::NT, 0, stream>>>(
-      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w), kept,
-      c, M, N, K, block, out_type, vec_x, vec_w);
+template <class C>
+int run(const void* x, const void* w, const int* kept, void* c, int M, int N,
+        int K, int block, int out_type, int vec_x, int vec_w, int splits,
+        int per, void* ws, void* counters, cudaStream_t s) {
+  Block24Op<C> op{};
+  op.x = static_cast<const uint16_t*>(x);
+  op.w = static_cast<const uint16_t*>(w);
+  op.kept = kept;
+  op.M = M;
+  op.N = N;
+  op.K = K;
+  op.block = block;
+  op.tma_x = vec_x && encode_tiles(&op.mx, x, 2, M, K, C::BM, 64, true);
+  op.tma_w = vec_w && encode_tiles(&op.mw, w, 2, K / 2, N, C::BK, 64, true);
+  if ((vec_x && !op.tma_x) || (vec_w && !op.tma_w))
+    return static_cast<int>(cudaErrorNotSupported);
+  return launch<C>(op, c, ws, counters, M, N, K / 2, out_type, splits, per,
+                   s);
 }
 
 }  // namespace
 
 // x (M, K) bf16; w (K/2, N) bf16; kept (K/2/block,) int32 dense block
 // indices; c (M, N) of out_type (0 f32, 1 bf16). K % 2 == 0, block > 0.
-// vec_x: x's base is 16-byte aligned, K % 8 == 0 and block % 8 == 0.
-// vec_w: w's base is 16-byte aligned and N % 8 == 0.
-// Returns cudaGetLastError() after the launch.
+// vec_x: x's base is 16-byte aligned, K % 8 == 0 and block % 64 == 0.
+// vec_w: w's base is 16-byte aligned and N % 8 == 0. The plan as for
+// repro_gemm, over the K/2 packed rows (kernels/gemm_plan.py). Returns the
+// CUDA status.
 extern "C" int repro_block24_gemm(const void* x, const void* w,
                                   const void* kept, void* c, int M, int N,
                                   int K, int block, int out_type, int vec_x,
-                                  int vec_w, void* stream) {
+                                  int vec_w, int tile, int splits, int per,
+                                  void* ws, void* counters, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K % 2 || block <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int* k = static_cast<const int*>(kept);
-  if (M <= 16)
-    launch<16, 64, 128, 16, 16>(x, w, k, c, M, N, K, block, out_type, vec_x,
-                                vec_w, s);
-  else
-    launch<64, 128, 64, 32, 32>(x, w, k, c, M, N, K, block, out_type, vec_x,
-                                vec_w, s);
-  return static_cast<int>(cudaGetLastError());
+  const int* kp = static_cast<const int*>(kept);
+  if (tile == TILE_SMALL)
+    return run<Small>(x, w, kp, c, M, N, K, block, out_type, vec_x, vec_w,
+                      splits, per, ws, counters, s);
+  if (tile == TILE_WIDE)
+    return run<Wide>(x, w, kp, c, M, N, K, block, out_type, vec_x, vec_w,
+                     splits, per, ws, counters, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

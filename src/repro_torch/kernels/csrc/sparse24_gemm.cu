@@ -13,183 +13,173 @@
 // What bounds it on the H100: at decode M is the slot count (4), so the time
 // is the packed weight read -- K/2 * N values plus K/8 * N meta bytes, 0.5625x
 // the dense bf16 weight -- over 3.35 TB/s; the multiplies are few. The point
-// of the packed form is to move fewer bytes from device memory, so each K
-// step reads only packed bytes and widens them on chip.
+// of the packed form is to move fewer bytes from device memory, so only
+// packed bytes cross it and the dense tile exists only in shared memory.
+// Before this design the decompression (an f32 one-hot sum per dense
+// element) cost more than the bytes it saved, and w_down (K = 14336) ran 64
+// blocks each walking all of K.
 //
-// Design: one thread block per BM x BN output tile with the K loop inside the
-// block, the tile GEMM of kernel A (wmma_tile.cuh), since GPU blocks cannot
-// carry the TPU kernel's accumulator across a sequential K grid axis. Each K
-// step stages a BM x BK tile of X in shared memory with 16-byte loads, and
-// decompresses the packed (BK/2, BN) values and (BK/8, BN) meta into a
-// dense bf16 (BK, BN) tile: a thread takes one meta byte row for four
-// adjacent columns (one 32-bit meta load, four 8-byte or 4-byte value loads,
-// all issued before any store), and writes the eight dense rows those bytes
-// cover, two values per group of four and zeros elsewhere. e4m3 and e5m2
-// widen exactly to bf16.
-// The dense tile then goes through WMMA 16x16x16 bf16 fragments into f32
-// accumulators. Ragged M and N, and a K that is a multiple of 8 but not of
-// BK, are masked in the loads and the epilogue (the JAX registry fell back to
-// XLA for any block that was not a multiple of 8, i.e. at every decode step).
+// Design: the tile GEMM of tile_gemm.cuh (shared with kernels A and E): K
+// split over enough blocks to fill the card (kernels/gemm_plan.py), a
+// 4-stage TMA ring that holds a BM x BK tile of X and the raw packed
+// (BK/2, BN) values and (BK/8, BN) meta of the steps ahead while one step
+// is decompressed and multiplied. Decompression runs from shared memory with
+// integer bit moves: a thread takes one meta byte (two groups of four dense
+// rows of one column) and shifts each value's bf16 bits (e4m3 and e5m2 widen
+// exactly) to the 16-bit slot its position names in a 64-bit word per group,
+// zeros elsewhere; the two words are one 16-byte row of the dense tile, which
+// is therefore stored K-major (wgmma without the transpose bit). At decode
+// each warp decompresses only the 16 columns it multiplies, so it waits for
+// no other warp. A malformed pack whose two positions name one slot keeps
+// the reference's sum of both values (pack_24 never makes one: its positions
+// come from a sort of distinct keys, tests/test_torch_sparsity.py). A bit
+// move keeps a stored -0.0 where the reference's one-hot f32 sum gave +0.0;
+// a signed zero changes no product sum. Decode (M <= 16) multiplies the
+// dense tile with mma.sync m16n8k16, prefill with wgmma m64n128k16. Ragged M
+// and N, and a K that is a multiple of 8 but not of BK, are zero-filled (the
+// JAX registry fell back to XLA for any block that was not a multiple of 8,
+// i.e. at every decode step).
+// Still short of the unpacked weight's library GEMM at decode gate/up and
+// down (measured, PERF.md): the decompression and its barrier add to every
+// K step, and a deeper step (BK = 128) or a wider tile did not help.
 // Later work: Hopper's sparse tensor cores (mma.sp, with their own meta
-// layout), wgmma, TMA and a pipelined K loop.
-#include "wmma_tile.cuh"
+// layout), which would skip the dense tile and half the multiplies.
+#include "tile_gemm.cuh"
 
 namespace {
 
-using namespace wmma_tile;
+using namespace tile_gemm;
 
-// Value types: the raw bits of four adjacent columns fit in two 32-bit words
-// (bf16) or one (fp8).
-template <int VT> struct Val;
-template <> struct Val<IN_BF16> {
-  typedef uint16_t bits;
-  static __device__ __forceinline__ float f32(uint32_t b) {
-    return __uint_as_float(b << 16);
-  }
-  static __device__ __forceinline__ uint32_t col(const uint32_t* w, int i) {
-    return (w[i >> 1] >> (16 * (i & 1))) & 0xffffu;
-  }
-  static __device__ __forceinline__ void load4(const uint16_t* p,
-                                               uint32_t* w) {
-    const uint2 r = *reinterpret_cast<const uint2*>(p);
-    w[0] = r.x;
-    w[1] = r.y;
-  }
-  static __device__ __forceinline__ void put(uint32_t* w, int i, uint32_t b) {
-    w[i >> 1] |= b << (16 * (i & 1));
-  }
-};
-struct Fp8Val {
-  typedef uint8_t bits;
-  static __device__ __forceinline__ uint32_t col(const uint32_t* w, int i) {
-    return (w[0] >> (8 * i)) & 0xffu;
-  }
-  static __device__ __forceinline__ void load4(const uint8_t* p, uint32_t* w) {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-    w[1] = 0;
-  }
-  static __device__ __forceinline__ void put(uint32_t* w, int i, uint32_t b) {
-    w[0] |= b << (8 * i);
-  }
-};
-template <> struct Val<IN_E4M3> : Fp8Val {
-  static __device__ __forceinline__ float f32(uint32_t b) {
-    __nv_fp8_e4m3 v;
-    v.__x = static_cast<__nv_fp8_storage_t>(b);
-    return static_cast<float>(v);
-  }
-};
-template <> struct Val<IN_E5M2> : Fp8Val {
-  static __device__ __forceinline__ float f32(uint32_t b) {
-    __nv_fp8_e5m2 v;
-    v.__x = static_cast<__nv_fp8_storage_t>(b);
-    return static_cast<float>(v);
-  }
-};
+template <int VT, class C>
+struct Sparse24Op {
+  typedef typename In<VT>::bits V;
+  static constexpr int VB = sizeof(V);
+  // stage: X's tile (C's A layout), then the raw values (BK/2 x BN) and
+  // meta (BK/8 x BN), row-major
+  static constexpr int V_OFF = round1024(C::A_BYTES);
+  static constexpr int V_BYTES = (C::BK / 2) * C::BN * VB;
+  static constexpr int M_OFF = V_OFF + round1024(V_BYTES);
+  static constexpr int M_BYTES = (C::BK / 8) * C::BN;
+  static constexpr int STAGE_BYTES = M_OFF + round1024(M_BYTES);
+  static constexpr int BUF_BYTES = C::B_BYTES;  // the dense bf16 B tile
+  static constexpr bool B_KMAJOR = true;
 
-// Decompress the packed weight rows for dense rows [k0, k0 + BK) and columns
-// [n0, n0 + BN) into a dense bf16 (BK, BN) shared-memory tile (leading dim
-// LD). A unit is one meta row (eight dense rows) by four columns.
-template <int VT, int BK, int BN, int LD, int NT>
-__device__ __forceinline__ void decompress_tile(
-    const typename Val<VT>::bits* __restrict__ vals,
-    const uint8_t* __restrict__ meta, int K, int N, int k0, int n0, bool vec,
-    __nv_bfloat16* dst, int tid) {
-  typedef Val<VT> V;
-  constexpr int UPR = BN / 4;                    // units per meta row
-  constexpr int UNITS = (BK / 8) * UPR;
-  static_assert(UNITS % NT == 0, "tile must split evenly over threads");
-  constexpr int PER = UNITS / NT;
-  const int K8 = K / 8;
-  uint32_t mw[PER], vw[PER][4][2];
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int unit = tid + u * NT;
-    const int gr8 = k0 / 8 + unit / UPR, gc = n0 + (unit % UPR) * 4;
-    mw[u] = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) vw[u][j][0] = vw[u][j][1] = 0;
-    if (gr8 >= K8) continue;
-    if (vec && gc + 4 <= N) {
-      mw[u] = *reinterpret_cast<const uint32_t*>(meta + (size_t)gr8 * N + gc);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        V::load4(vals + (size_t)(4 * gr8 + j) * N + gc, vw[u][j]);
-    } else {
-      for (int i = 0; i < 4 && gc + i < N; ++i) {
-        mw[u] |= uint32_t(meta[(size_t)gr8 * N + gc + i]) << (8 * i);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          V::put(vw[u][j], i, vals[(size_t)(4 * gr8 + j) * N + gc + i]);
+  CUtensorMap mx, mv, mm;  // used where tma_x / tma_w
+  const uint16_t* x;
+  const V* vals;
+  const uint8_t* meta;
+  int M, N, K;
+  bool tma_x, tma_w;
+
+  __device__ __forceinline__ void load(int k0, unsigned char* st, int m0,
+                                       int n0, int tid, uint64_t* bar) const {
+    unsigned char* vs = st + V_OFF;
+    unsigned char* ms = st + M_OFF;
+    if (tid == 0) {
+      mbar_expect(bar, (tma_x ? C::A_BYTES : 0) +
+                           (tma_w ? V_BYTES + M_BYTES : 0));
+      if (tma_x) tma_2d(st, &mx, k0, m0, bar);
+      if (tma_w) {
+        tma_2d(vs, &mv, n0, k0 / 2, bar);
+        tma_2d(ms, &mm, n0, k0 / 8, bar);
       }
     }
-  }
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int unit = tid + u * NT;
-    const int r8 = unit / UPR, c4 = (unit % UPR) * 4;
-#pragma unroll
-    for (int rr = 0; rr < 8; ++rr) {
-      const int grp = rr >> 2, slot = rr & 3;
-      uint32_t o[2] = {0, 0};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint32_t m = (mw[u] >> (8 * i)) & 0xffu;
-        const uint32_t pa = (m >> (4 * grp)) & 3u, pb = (m >> (4 * grp + 2)) & 3u;
-        // the reference's one-hot sum: each slot takes the values whose
-        // position names it (one of them for a well-formed pack)
-        float s = 0.0f;
-        if (pa == uint32_t(slot)) s += V::f32(V::col(vw[u][2 * grp], i));
-        if (pb == uint32_t(slot)) s += V::f32(V::col(vw[u][2 * grp + 1], i));
-        o[i >> 1] |= uint32_t(__bfloat16_as_ushort(__float2bfloat16(s)))
-                     << (16 * (i & 1));
-      }
-      *reinterpret_cast<uint2*>(dst + (8 * r8 + rr) * LD + c4) =
-          make_uint2(o[0], o[1]);
+    if (!tma_x)
+      load_tile<uint16_t, C::BM, C::BK, C::NT>(
+          x, M, K, m0, k0,
+          [=](int r, int c) { return st + a_off(r, c); }, tid);
+    if (!tma_w) {
+      load_tile<V, C::BK / 2, C::BN, C::NT>(
+          vals, K / 2, N, k0 / 2, n0,
+          [=](int r, int c) { return vs + (r * C::BN + c) * VB; }, tid);
+      load_tile<uint8_t, C::BK / 8, C::BN, C::NT>(
+          meta, K / 8, N, k0 / 8, n0,
+          [=](int r, int c) { return ms + r * C::BN + c; }, tid);
     }
   }
-}
 
-template <int VT, int BM, int BN, int BK, int WM, int WN>
-__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
-sparse24_kernel(const uint16_t* __restrict__ x,
-                const typename Val<VT>::bits* __restrict__ vals,
-                const uint8_t* __restrict__ meta, void* __restrict__ c_,
-                int M, int N, int K, int out_type, int vec_x, int vec_w) {
-  typedef Tile<BM, BN, BK, WM, WN> Tl;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, tid = threadIdx.x;
-  tile_gemm<BM, BN, BK, WM, WN>(
-      K, c_, M, N, out_type,
-      [=](int k0, __nv_bfloat16* As, __nv_bfloat16* Bs) {
-        load_tile<IN_BF16, BM, BK, Tl::LDA, Tl::NT>(x, M, K, m0, k0, vec_x,
-                                                    As, tid);
-        decompress_tile<VT, BK, BN, Tl::LDB, Tl::NT>(vals, meta, K, N, k0,
-                                                     n0, vec_w, Bs, tid);
-      });
-}
+  // The dense B tile, K-major: unit (r8, n) is one meta byte, the eight
+  // dense rows 8 * r8 .. 8 * r8 + 7 of column n, one 16-byte row of it.
+  __device__ __forceinline__ int operands(unsigned char* st,
+                                           unsigned char* buf,
+                                           const unsigned char*& A,
+                                           const unsigned char*& B,
+                                           int tid) const {
+    const V* vs = reinterpret_cast<const V*>(st + V_OFF);
+    // Small: each warp decompresses the 16 columns it multiplies, so only
+    // the warp waits for them; Wide: the block shares every column.
+    constexpr int COLS = C::WIDE ? C::BN : C::BN / 4;
+    constexpr int WORKERS = C::WIDE ? C::NT : 32;
+    constexpr int UNITS = (C::BK / 8) * COLS;
+    static_assert(UNITS % WORKERS == 0, "units split evenly over threads");
+    const int col0 = C::WIDE ? 0 : (tid / 32) * COLS;
+    const int me = C::WIDE ? tid : tid % 32;
+#pragma unroll
+    for (int i = 0; i < UNITS / WORKERS; ++i) {
+      const int u = me + i * WORKERS;
+      const int r8 = u / COLS, n = col0 + u % COLS;
+      const uint32_t m = st[M_OFF + r8 * C::BN + n];
+      uint32_t o[4];
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp) {
+        const int pa = (m >> (4 * grp)) & 3, pb = (m >> (4 * grp + 2)) & 3;
+        const int row = 4 * r8 + 2 * grp;
+        const uint32_t a = vs[row * C::BN + n];
+        const uint32_t b = vs[(row + 1) * C::BN + n];
+        // the four slots of the group, 16 bits each: each value moves to
+        // the slot its position names
+        uint64_t g = (uint64_t(In<VT>::bf16_bits(a)) << (16 * pa)) |
+                     (uint64_t(In<VT>::bf16_bits(b)) << (16 * pb));
+        if (pa == pb)
+          g = uint64_t(__bfloat16_as_ushort(__float2bfloat16(
+                  In<VT>::f32(a) + In<VT>::f32(b))))
+              << (16 * pa);
+        o[2 * grp] = static_cast<uint32_t>(g);
+        o[2 * grp + 1] = static_cast<uint32_t>(g >> 32);
+      }
+      *reinterpret_cast<uint4*>(buf + bt_off(n, 8 * r8)) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    A = st;
+    B = buf;
+    return C::WIDE ? WROTE_BLOCK : WROTE_WARP;
+  }
+};
 
-template <int VT, int BM, int BN, int BK, int WM, int WN>
-void launch(const void* x, const void* vals, const void* meta, void* c, int M,
-            int N, int K, int out_type, int vec_x, int vec_w,
-            cudaStream_t stream) {
-  typedef Tile<BM, BN, BK, WM, WN> Tl;
-  sparse24_kernel<VT, BM, BN, BK, WM, WN>
-      <<<Tl::grid(M, N), Tl::NT, 0, stream>>>(
-      static_cast<const uint16_t*>(x),
-      static_cast<const typename Val<VT>::bits*>(vals),
-      static_cast<const uint8_t*>(meta), c, M, N, K, out_type, vec_x, vec_w);
+template <int VT, class C>
+int run(const void* x, const void* vals, const void* meta, void* c, int M,
+        int N, int K, int out_type, int vec_x, int vec_w, int splits, int per,
+        void* ws, void* counters, cudaStream_t s) {
+  typedef Sparse24Op<VT, C> Op;
+  Op op{};
+  op.x = static_cast<const uint16_t*>(x);
+  op.vals = static_cast<const typename Op::V*>(vals);
+  op.meta = static_cast<const uint8_t*>(meta);
+  op.M = M;
+  op.N = N;
+  op.K = K;
+  op.tma_x = vec_x && encode_tiles(&op.mx, x, 2, M, K, C::BM, 64, true);
+  op.tma_w = vec_w &&
+             encode_tiles(&op.mv, vals, Op::VB, K / 2, N, C::BK / 2, C::BN,
+                          false) &&
+             encode_tiles(&op.mm, meta, 1, K / 8, N, C::BK / 8, C::BN, false);
+  if ((vec_x && !op.tma_x) || (vec_w && !op.tma_w))
+    return static_cast<int>(cudaErrorNotSupported);
+  return launch<C>(op, c, ws, counters, M, N, K, out_type, splits, per, s);
 }
 
 template <int VT>
-void dispatch(const void* x, const void* vals, const void* meta, void* c,
-              int M, int N, int K, int out_type, int vec_x, int vec_w,
-              cudaStream_t stream) {
-  if (M <= 16)
-    launch<VT, 16, 64, 128, 16, 16>(x, vals, meta, c, M, N, K, out_type,
-                                    vec_x, vec_w, stream);
-  else
-    launch<VT, 64, 128, 64, 32, 32>(x, vals, meta, c, M, N, K, out_type,
-                                    vec_x, vec_w, stream);
+int dispatch(const void* x, const void* vals, const void* meta, void* c,
+             int M, int N, int K, int out_type, int vec_x, int vec_w,
+             int tile, int splits, int per, void* ws, void* counters,
+             cudaStream_t s) {
+  if (tile == TILE_SMALL)
+    return run<VT, Small>(x, vals, meta, c, M, N, K, out_type, vec_x, vec_w,
+                          splits, per, ws, counters, s);
+  if (tile == TILE_WIDE)
+    return run<VT, Wide>(x, vals, meta, c, M, N, K, out_type, vec_x, vec_w,
+                         splits, per, ws, counters, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -197,25 +187,27 @@ void dispatch(const void* x, const void* vals, const void* meta, void* c,
 // x (M, K) bf16; vals (K/2, N) of val_type (0 bf16, 1 e4m3, 2 e5m2); meta
 // (K/8, N) uint8; c (M, N) of out_type (0 f32, 1 bf16). K % 8 == 0.
 // vec_x: x's base is 16-byte aligned. vec_w: vals' and meta's bases are
-// 16-byte aligned and N % 4 == 0. Returns cudaGetLastError() after the launch.
+// 16-byte aligned and so are their rows (N % 16 == 0). The plan as for
+// repro_gemm (kernels/gemm_plan.py). Returns the CUDA status.
 extern "C" int repro_sparse24_gemm(const void* x, const void* vals,
                                    const void* meta, void* c, int M, int N,
                                    int K, int val_type, int out_type,
-                                   int vec_x, int vec_w, void* stream) {
+                                   int vec_x, int vec_w, int tile, int splits,
+                                   int per, void* ws, void* counters,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K % 8) return static_cast<int>(cudaErrorInvalidValue);
   switch (val_type) {
     case IN_BF16:
-      dispatch<IN_BF16>(x, vals, meta, c, M, N, K, out_type, vec_x, vec_w, s);
-      break;
+      return dispatch<IN_BF16>(x, vals, meta, c, M, N, K, out_type, vec_x,
+                               vec_w, tile, splits, per, ws, counters, s);
     case IN_E4M3:
-      dispatch<IN_E4M3>(x, vals, meta, c, M, N, K, out_type, vec_x, vec_w, s);
-      break;
+      return dispatch<IN_E4M3>(x, vals, meta, c, M, N, K, out_type, vec_x,
+                               vec_w, tile, splits, per, ws, counters, s);
     case IN_E5M2:
-      dispatch<IN_E5M2>(x, vals, meta, c, M, N, K, out_type, vec_x, vec_w, s);
-      break;
+      return dispatch<IN_E5M2>(x, vals, meta, c, M, N, K, out_type, vec_x,
+                               vec_w, tile, splits, per, ws, counters, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -5,15 +5,16 @@ with f32 accumulation, undescaled output in f32 or bf16. Operands are both
 bf16, both e4m3 or both e5m2. The CUDA kernel masks ragged M, N and K
 itself, so unlike the TPU kernel it takes every shape.
 
-``fp8_matmul`` launches the kernel for CUDA tensors and raises on what it
-does not take; for CPU tensors it computes :func:`fp8_matmul_plain`, the
-kernel's plain PyTorch twin (f32 operands, f32 accumulation).
+``fp8_matmul`` launches the kernel for CUDA tensors, with the tile and K
+splits of :func:`gemm_plan.launch_plan`, and raises on what it does not
+take; for CPU tensors it computes :func:`fp8_matmul_plain`, the kernel's
+plain PyTorch twin (f32 operands, f32 accumulation).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, gemm_plan
 
 # Launches of the CUDA kernel since the last reset (chip_smoke.py reads it).
 LAUNCHES = 0
@@ -57,10 +58,12 @@ def fp8_matmul(x: torch.Tensor, w: torch.Tensor,
     if M == 0 or N == 0:
         return out
     lib = _build.load("gemm")
+    plan, scratch = gemm_plan.launch_plan(M, N, K, "gemm", x.device)
     status = lib.repro_gemm(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
         _IN_TYPES[x.dtype], _OUT_TYPES[out_dtype],
         int(_aligned(x, K)), int(_aligned(w, N)),
+        *gemm_plan.plan_args(plan, scratch),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "repro_gemm")
     global LAUNCHES

@@ -1,0 +1,136 @@
+"""The launch plan of the tile GEMM behind kernels A, D and E
+(``csrc/tile_gemm.cuh``): which tile, and how K is split over blocks.
+
+:func:`plan` is a plain function of its key (M, N, K, kind, SM count) and
+caches its result: the same shapes always get the same tile and splits, so
+the kernels sum in the same order on every call. The exact dense == paged
+logits of ``serve_paged`` and run-to-run repeatability rest on that; the
+plan never looks at memory, the stream or a timing.
+
+Rule: the Small tile for M <= 16 (decode), the Wide one above. If the output
+tiles alone give fewer blocks than :data:`BLOCKS_PER_SM` asks for, K is cut
+into ``splits`` ranges of ``steps_per_split`` whole BK steps, none empty, so
+that tiles × splits reaches it where K has the steps for it (on the 132-SM
+H100: 264 decode blocks for kernel A, 528 for kernel D, 66 wide ones).
+``K`` is the depth the kernel walks: K for kernels A and D, the K/2 packed
+rows for kernel E.
+
+:func:`launch_plan` adds what a wrapper needs on the card, looked up once per
+shape and device: the plan and the device's split-K scratch (an f32
+workspace of splits × M × N partial sums and one int32 counter per output
+tile, grown to the largest plan seen). The kernels reset the counters
+themselves. One set per device serves one stream, which is all the port
+uses.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import torch
+
+# Tile id -> (BM, BN, BK), as csrc/tile_gemm.cuh's Small and Wide.
+SMALL, WIDE = 0, 1
+TILES = {SMALL: (16, 64, 64), WIDE: (128, 128, 64)}
+KINDS = ("gemm", "sparse24", "block24")
+# Blocks to aim for, per SM, by (kind, tile). Measured on the H100
+# (PERF.md): the decode tile of kernels A and E is fastest at two blocks per
+# SM and that of kernel D, whose blocks also decompress, at four; the wide
+# tile (one block per SM fits) at one block for every two SMs, since its
+# split-K epilogue costs more than the blocks it adds gain.
+BLOCKS_PER_SM = {("gemm", SMALL): 2.0, ("sparse24", SMALL): 4.0,
+                 ("block24", SMALL): 2.0, ("gemm", WIDE): 0.5,
+                 ("sparse24", WIDE): 0.5, ("block24", WIDE): 0.5}
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class Plan:
+    tile: int
+    bm: int
+    bn: int
+    bk: int
+    splits: int
+    steps_per_split: int
+    m_tiles: int
+    n_tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles * self.splits
+
+    def k_ranges(self, K: int) -> List[Tuple[int, int]]:
+        """[k0, k1) of each split, in the order the kernel sums them."""
+        span = self.steps_per_split * self.bk
+        return [(z * span, min(K, (z + 1) * span))
+                for z in range(self.splits)]
+
+    def describe(self) -> str:
+        name = "small" if self.tile == SMALL else "wide"
+        return (f"{name} {self.bm}x{self.bn}x{self.bk}, {self.m_tiles}x"
+                f"{self.n_tiles} tiles, S={self.splits} x "
+                f"{self.steps_per_split} steps, {self.blocks} blocks")
+
+
+@functools.lru_cache(maxsize=None)
+def plan(M: int, N: int, K: int, kind: str, sm_count: int) -> Plan:
+    if kind not in KINDS:
+        raise ValueError(f"kind {kind!r}: want one of {KINDS}")
+    if min(M, N) < 1 or K < 0 or sm_count < 1:
+        raise ValueError(f"no plan for M={M} N={N} K={K} on {sm_count} SMs")
+    tile = SMALL if M <= 16 else WIDE
+    bm, bn, bk = TILES[tile]
+    m_tiles, n_tiles = _cdiv(M, bm), _cdiv(N, bn)
+    tiles = m_tiles * n_tiles
+    steps = max(1, _cdiv(K, bk))
+    target = int(BLOCKS_PER_SM[kind, tile] * sm_count)
+    splits = 1 if tiles >= target else min(_cdiv(target, tiles), steps)
+    per = _cdiv(steps, splits)
+    return Plan(tile, bm, bn, bk, _cdiv(steps, per), per, m_tiles, n_tiles)
+
+
+class _Scratch:
+    """One device's split-K workspace and tile counters."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.ws = torch.empty(0, dtype=torch.float32, device=device)
+        self.counters = torch.zeros(0, dtype=torch.int32, device=device)
+
+    def reserve(self, n_floats: int, n_counters: int) -> None:
+        if n_floats > self.ws.numel():
+            self.ws = torch.empty(n_floats, dtype=torch.float32,
+                                  device=self.device)
+        if n_counters > self.counters.numel():
+            self.counters = torch.zeros(n_counters, dtype=torch.int32,
+                                        device=self.device)
+
+
+_SCRATCH = {}
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(M: int, N: int, K: int, kind: str,
+                device: torch.device) -> Tuple[Plan, _Scratch]:
+    """The plan for a CUDA ``device`` and that device's scratch, grown for
+    it. One cached lookup per wrapper call."""
+    props = torch.cuda.get_device_properties(device)
+    p = plan(M, N, K, kind, props.multi_processor_count)
+    scratch = _SCRATCH.get(device)
+    if scratch is None:
+        scratch = _SCRATCH[device] = _Scratch(device)
+    if p.splits > 1:
+        scratch.reserve(p.splits * M * N, p.m_tiles * p.n_tiles)
+    return p, scratch
+
+
+def plan_args(p: Plan, scratch: _Scratch) -> tuple:
+    """The plan's arguments of a C entry point: tile, splits, steps per
+    split, workspace and counters (null with one split)."""
+    if p.splits == 1:
+        return p.tile, 1, p.steps_per_split, None, None
+    return (p.tile, p.splits, p.steps_per_split, scratch.ws.data_ptr(),
+            scratch.counters.data_ptr())

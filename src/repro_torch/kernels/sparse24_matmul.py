@@ -14,9 +14,10 @@ Ports of ``repro/kernels/sparse24_matmul.py``:
   back to back; ``kept_idx`` names each one's dense K-block. M·N·K/2
   multiply-adds.
 
-Each launches its kernel for CUDA tensors and raises on what it does not
-take; for CPU tensors it computes its plain PyTorch twin
-(:func:`sparse24_matmul_plain`, :func:`block24_matmul_plain`).
+Each launches its kernel for CUDA tensors, with the tile and K splits of
+:func:`gemm_plan.launch_plan`, and raises on what it does not take; for CPU
+tensors it computes its plain PyTorch twin (:func:`sparse24_matmul_plain`,
+:func:`block24_matmul_plain`).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, gemm_plan, ref
 
 # Launches of each CUDA kernel since the last reset (chip_smoke.py reads
 # them): kernel D and kernel E.
@@ -94,10 +95,12 @@ def sparse24_matmul(x: torch.Tensor, values: torch.Tensor, meta: torch.Tensor,
     if M == 0 or N == 0:
         return out
     lib = _build.load("sparse24_gemm")
+    plan, scratch = gemm_plan.launch_plan(M, N, K, "sparse24", x.device)
     status = lib.repro_sparse24_gemm(
         x.data_ptr(), values.data_ptr(), meta.data_ptr(), out.data_ptr(),
         M, N, K, _VAL_TYPES[values.dtype], _OUT_TYPES[out_dtype],
-        int(_aligned(x)), int(_aligned(values, meta) and N % 4 == 0),
+        int(_aligned(x)), int(_aligned(values, meta) and N % 16 == 0),
+        *gemm_plan.plan_args(plan, scratch),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "repro_sparse24_gemm")
     global LAUNCHES
@@ -162,11 +165,13 @@ def block24_matmul(x: torch.Tensor, w_packed: torch.Tensor, kept_idx,
         return out
     kept_t = _kept_tensor(kept, x.device)
     lib = _build.load("block24_gemm")
+    plan, scratch = gemm_plan.launch_plan(M, N, K // 2, "block24", x.device)
     status = lib.repro_block24_gemm(
         x.data_ptr(), w_packed.data_ptr(), kept_t.data_ptr(), out.data_ptr(),
         M, N, K, block, _OUT_TYPES[out_dtype],
-        int(_aligned(x) and K % 8 == 0 and block % 8 == 0),
+        int(_aligned(x) and K % 8 == 0 and block % 64 == 0),
         int(_aligned(w_packed) and N % 8 == 0),
+        *gemm_plan.plan_args(plan, scratch),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "repro_block24_gemm")
     global BLOCK24_LAUNCHES

@@ -12,6 +12,7 @@ from repro_torch.core import fp8 as tfp8
 from repro_torch.core import sparsity as tsp
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fp8_matmul as fm
+from repro_torch.kernels import gemm_plan as gp
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sparse24_matmul as sm
 
@@ -21,8 +22,15 @@ def _need_cuda():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
 
 
+# Shapes whose plan splits K (decode and wide tiles), the wide (wgmma) tile
+# at M = 128, and ragged M, N and K: with and without 16-byte aligned rows.
+SPLIT_AND_RAGGED = [(4, 4096, 1024), (128, 4096, 1024), (77, 4000, 1000),
+                    (33, 200, 72), (128, 1032, 136)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(4, 256, 1000), (77, 200, 72), (1, 8, 3)])
+@pytest.mark.parametrize("m,k,n", [(4, 256, 1000), (77, 200, 72), (1, 8, 3)]
+                         + SPLIT_AND_RAGGED)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn,
                                    torch.float8_e5m2])
 def test_cuda_gemm_kernel_matches_plain(m, k, n, dtype):
@@ -66,7 +74,8 @@ def test_cuda_quantization_matches_the_cpu_bytes():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(4, 512, 1024), (77, 4000, 1000),
-                                   (3, 24, 40), (128, 256, 384)])
+                                   (3, 24, 40), (128, 256, 384),
+                                   (4, 4096, 1024), (128, 4096, 1024)])
 @pytest.mark.parametrize("vdtype", [torch.bfloat16, torch.float8_e4m3fn,
                                     torch.float8_e5m2])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -91,7 +100,9 @@ def test_cuda_sparse24_kernel_matches_plain(m, k, n, vdtype, out_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,block", [(4, 4096, 1024, 128),
                                          (77, 512, 1000, 64),
-                                         (3, 96, 40, 12), (5, 64, 36, 8)])
+                                         (3, 96, 40, 12), (5, 64, 36, 8),
+                                         (128, 4096, 1024, 128),
+                                         (128, 1024, 520, 64)])
 def test_cuda_block24_kernel_matches_plain(m, k, n, block):
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -106,6 +117,46 @@ def test_cuda_block24_kernel_matches_plain(m, k, n, block):
     torch.testing.assert_close(
         got, sm.block24_matmul_plain(x, packed, kept, block, torch.float32),
         rtol=1e-4, atol=1e-4)
+
+
+def _plain_and_kernel(kernel, m, k, n, gen):
+    """(kernel call, plan) of kernel A, D or E on seeded inputs."""
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((k, n), generator=gen, device="cuda")
+         * k ** -0.5).bfloat16()
+    dev = x.device
+    if kernel == "A":
+        return (lambda: fm.fp8_matmul(x, w, torch.bfloat16),
+                gp.launch_plan(m, n, k, "gemm", dev)[0])
+    if kernel == "D":
+        values, meta = tsp.pack_24(tsp.prune_24(w))
+        return (lambda: sm.sparse24_matmul(x, values, meta, torch.float32),
+                gp.launch_plan(m, n, k, "sparse24", dev)[0])
+    wp, keep = tsp.prune_block24(w, 128)
+    kept = tuple(int(i) for i in torch.nonzero(keep).flatten())
+    packed = torch.cat([wp[i * 128:(i + 1) * 128] for i in kept])
+    return (lambda: sm.block24_matmul(x, packed, kept, 128, torch.bfloat16),
+            gp.launch_plan(m, n, k // 2, "block24", dev)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["A", "D", "E"])
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 1024), (128, 4096, 1024)])
+def test_cuda_split_k_is_bit_repeatable(kernel, m, k, n):
+    """Split-K sums its partials in a fixed order (no float atomics): two
+    calls on the same inputs give the same bits, at plans that split K."""
+    _need_cuda()
+    call, plan = _plain_and_kernel(kernel, m, k, n,
+                                   torch.Generator(device="cuda")
+                                   .manual_seed(7))
+    assert plan.splits > 1
+    first = call()
+    for _ in range(3):
+        again = call()
+        assert torch.equal(first.view(torch.int16 if first.element_size()
+                                      == 2 else torch.int32),
+                           again.view(torch.int16 if again.element_size()
+                                      == 2 else torch.int32))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,116 @@
+"""The launch plan of the tile GEMM (``repro_torch.kernels.gemm_plan``):
+tiles cover the output once, K splits are whole BK steps, the plan is a
+pure function of its key, and summing the plain partial products over the
+plan's K ranges in split order gives the kernel's plain result.
+
+Runs on the CPU: the plan is plain Python, and the split-order sum is what
+the CUDA kernels' split-K fix-up computes. Inputs come from numpy seeds.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import fp8_matmul as fm
+from repro_torch.kernels import gemm_plan as gp
+
+H100_SMS = 132
+
+# llama3-8b's projections at decode (M = 4 slots) and prefill (128, 77),
+# the LM head, and ragged shapes
+MAIN_PATH = [(M, K, N) for M in (4, 128, 77)
+             for K, N in ((4096, 14336), (4096, 4096), (4096, 1024),
+                          (14336, 4096))] + [(4, 4096, 128256)]
+RAGGED = [(77, 4000, 1000), (33, 200, 72), (3, 24, 40), (5, 8, 3),
+          (128, 4100, 1030), (17, 4096, 1024)]
+SMALL_M = [(m, k, n) for m in (1, 2, 3, 4) for k, n in ((4096, 1024),
+                                                        (64, 8), (8, 3))]
+SHAPES = MAIN_PATH + RAGGED + SMALL_M
+
+
+@pytest.mark.parametrize("kind", gp.KINDS)
+@pytest.mark.parametrize("M,K,N", SHAPES)
+def test_every_output_tile_appears_once_and_splits_partition_k(M, K, N,
+                                                               kind):
+    p = gp.plan(M, N, K, kind, H100_SMS)
+    assert (p.bm, p.bn, p.bk) == gp.TILES[p.tile]
+    assert p.tile == (gp.SMALL if M <= 16 else gp.WIDE)
+    cover = np.zeros((M, N), dtype=np.int64)
+    for mt in range(p.m_tiles):
+        for nt in range(p.n_tiles):
+            cover[mt * p.bm:(mt + 1) * p.bm, nt * p.bn:(nt + 1) * p.bn] += 1
+    assert (cover == 1).all()
+    assert (p.m_tiles - 1) * p.bm < M and (p.n_tiles - 1) * p.bn < N
+    ranges = p.k_ranges(K)
+    assert len(ranges) == p.splits >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0
+    for k0, k1 in ranges:
+        assert k0 % p.bk == 0 and k0 < k1 or K == 0
+        assert k1 == K or (k1 - k0) == p.steps_per_split * p.bk
+
+
+@pytest.mark.parametrize("M,K,N", MAIN_PATH)
+def test_plan_fills_the_card_where_k_allows(M, K, N):
+    """Decode shapes reach the block count their kind asks for; the LM head
+    fills it with tiles alone and takes no split."""
+    for kind in gp.KINDS:
+        p = gp.plan(M, N, K, kind, H100_SMS)
+        target = int(gp.BLOCKS_PER_SM[kind, p.tile] * H100_SMS)
+        steps = -(-K // p.bk)
+        tiles = p.m_tiles * p.n_tiles
+        if tiles >= target:
+            assert p.splits == 1
+        else:
+            assert p.blocks >= min(target, tiles * steps) * 0.9
+    assert gp.plan(4, 128256, 4096, "gemm", H100_SMS).splits == 1
+
+
+def test_plan_is_a_pure_function_of_its_key():
+    gp.plan.cache_clear()
+    first = {s: gp.plan(s[0], s[2], s[1], "gemm", H100_SMS) for s in SHAPES}
+    again = {s: gp.plan(s[0], s[2], s[1], "gemm", H100_SMS) for s in SHAPES}
+    gp.plan.cache_clear()
+    fresh = {s: gp.plan(s[0], s[2], s[1], "gemm", H100_SMS) for s in SHAPES}
+    assert first == again == fresh
+    assert all(first[s] is again[s] for s in SHAPES)
+
+
+def test_plan_refuses_what_it_cannot_plan():
+    with pytest.raises(ValueError):
+        gp.plan(4, 64, 64, "conv", H100_SMS)
+    with pytest.raises(ValueError):
+        gp.plan(0, 64, 64, "gemm", H100_SMS)
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 64), (4, 4096, 1024),
+                                   (3, 1000, 72), (128, 4096, 256),
+                                   (77, 4000, 130)])
+def test_split_order_sum_equals_the_plain_product(M, K, N):
+    """The fix-up's sum of f32 partials over the plan's K ranges, split 0
+    first, against ``fp8_matmul_plain``: within f32 rounding, and exactly
+    repeatable."""
+    rng = np.random.default_rng(M * 7 + N)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(K, N)) * K ** -0.5)
+                         .astype(np.float32))
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    p = gp.plan(M, N, K, "gemm", H100_SMS)
+    assert p.splits > 1
+
+    def split_sum():
+        acc = torch.zeros((M, N), dtype=torch.float32)
+        for k0, k1 in p.k_ranges(K):
+            acc = acc + fm.fp8_matmul_plain(x[:, k0:k1], w[k0:k1])
+        return acc
+
+    got = split_sum()
+    want = fm.fp8_matmul_plain(x, w)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, split_sum())
+
+
+def test_launch_plan_refuses_the_cpu():
+    """The scratch and SM count belong to a CUDA device."""
+    with pytest.raises((AssertionError, RuntimeError, ValueError)):
+        gp.launch_plan(4, 64, 64, "gemm", torch.device("cpu"))

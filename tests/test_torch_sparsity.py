@@ -87,6 +87,22 @@ def test_pack_lists_nonzeros_first():
     assert int(np.asarray(jm)[0, 0]) == 40
 
 
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pack_never_names_one_slot_twice(kind, dtype):
+    """Kernel D moves each value's bits to the slot its position names; a
+    pack whose two positions in a group coincide would need the reference's
+    sum instead. Neither package's pack_24 makes one, all-zero groups
+    included (their positions come from a sort of distinct keys)."""
+    a = _weight(kind, (64, 40), 3)
+    a[:8] = 0.0
+    j, t = _pair(a, dtype)
+    for meta in (tsp.pack_24(tsp.prune_24(t))[1].numpy(),
+                 np.asarray(jsp.pack_24(jsp.prune_24(j))[1])):
+        pos = [(meta >> s) & 3 for s in (0, 2, 4, 6)]
+        assert (pos[0] != pos[1]).all() and (pos[2] != pos[3]).all()
+
+
 @pytest.mark.parametrize("kind", ["normal", "ties"])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16,
                                    jnp.float8_e4m3fn])
