@@ -23,12 +23,14 @@ their entry points (``kernels.paged_attention.paged_decode_attention`` and
 ``sweep_paged_tilings``, ``kernels.ops.block24_matmul``) are driven at
 their phases' shapes, and C also on the paged run's live pools.
 
-Kernels A, D and E are timed with their operands out of L2 (rotating
-copies where they total less than its 50 MB), checked against their plain
-versions and for bit-equal repeats, and print the tile and K splits the
-planner gave each shape. ``--kernels-only [--src DIR/src]`` runs just that,
-on this checkout or another, so that two commits' kernels can be timed by
-the same code in one call.
+Every kernel is timed by its device time (torch.profiler) with its
+operands out of L2 (rotating copies where they total less than its 50 MB),
+checked against its plain version and for bit-equal repeats, and prints its
+plan: the tile and K splits of A, D and E, the grid of B, the splits of C's
+page walk. B and C are timed beside SDPA, whose CUDA-event means are kept
+as a second column. ``--kernels-only [--src DIR/src]`` runs just that, on
+this checkout or another, so that two commits' kernels can be timed by the
+same code in one call.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -118,11 +120,11 @@ def cold_ms(fn, operands, iters: int):
     def call():
         return fn(*sets[next(turn) % n])
 
-    for _ in range(3):  # a profile now and then records no kernel at all
+    for _ in range(5):  # a profile now and then misses kernels
         ms = device_ms(call, iters)
         if ms > 0:
             return ms, n
-    fail("torch.profiler recorded no kernel in three profiles of one call")
+    fail("torch.profiler missed kernels in five profiles of one call")
 
 
 def host_us(fn, calls: int = 100) -> float:
@@ -161,7 +163,11 @@ def device_ms(fn, iters: int = 50) -> float:
     """Mean device time per call of ``fn``: the summed durations of the
     kernels it launches, from torch.profiler over ``iters`` calls (after
     one warm-up call). Unlike ``time_ms`` it leaves out the gaps in which
-    the device waits for the host to issue the next call."""
+    the device waits for the host to issue the next call. Every call
+    launches the same kernels, so a profile in which some kernel was not
+    recorded a whole number of times per call lost events: it gives 0, and
+    ``cold_ms`` profiles again."""
+    import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -171,8 +177,12 @@ def device_ms(fn, iters: int = 50) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")) \
+    kernels = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    counts = collections.Counter(e.name for e in kernels)
+    if any(n % iters for n in counts.values()):
+        return 0.0
+    return sum(e.time_range.end - e.time_range.start for e in kernels) \
         / 1e3 / iters
 
 
@@ -326,11 +336,31 @@ def flash_flops(B, h, S, hd):
     return 4.0 * hd * B * h * S * (S + 1) / 2
 
 
+def flash_plan_note(B, h, S) -> str:
+    """Kernel B's grid at this shape, or a note where the checkout under
+    test does not describe it."""
+    from repro_torch.kernels import flash_attention as fa
+    if not hasattr(fa, "describe_grid"):
+        return "no grid description in this checkout"
+    return fa.describe_grid(B, h, S)
+
+
 def flash_phase():
+    """Kernel B at the prefill shapes: checked against its plain version
+    and for a bit-equal repeat, then timed beside SDPA by device time with
+    the operands out of L2 (CUDA-event means as a second column)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def kernel(q, k, v):
+        return fa.flash_attention(q, k, v, causal=True)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
     rows = []
     for B, h, kvh, S, hd in FLASH_SHAPES:
         q = torch.randn((B, h, S, hd), generator=gen, device="cuda").to(
@@ -339,27 +369,36 @@ def flash_phase():
             torch.bfloat16)
         v = torch.randn((B, kvh, S, hd), generator=gen, device="cuda").to(
             torch.bfloat16)
-        got = fa.flash_attention(q, k, v, causal=True)
+        got = kernel(q, k, v)
+        again = kernel(q, k, v)
         want = fa.flash_attention_plain(q, k, v, causal=True)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        ok = bool(torch.isfinite(got).all()) and err <= FLASH_TOL
+        same = bit_equal(got, again)
+        ok = bool(torch.isfinite(got).all()) and err <= FLASH_TOL and same
+        plan = flash_plan_note(B, h, S)
         print(f"[flash] B={B} h={h} kvh={kvh} S={S} hd={hd} causal: "
-              f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}",
-              flush=True)
+              f"max_abs_err={err:.3e} repeat bit-equal={same} plan {plan} "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
             fail(f"flash attention S={S} disagrees with its plain version "
-                 f"(max_abs_err {err:.3e} > {FLASH_TOL})")
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), 100)
+                 f"(max_abs_err {err:.3e} > {FLASH_TOL}) or with itself "
+                 f"(bit-equal {same})")
+        ms, copies = cold_ms(kernel, (q, k, v), 100)
+        lib = cold_ms(sdpa, (q, k, v), 100)[0]
         plain = time_ms(
             lambda: fa.flash_attention_plain(q, k, v, causal=True), 20)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 100)
         n_bytes = 2 * (2 * B * h * S * hd + 2 * B * kvh * S * hd)
         bms, by = bound_ms(n_bytes, flash_flops(B, h, S, hd), "bf16")
         row = {"label": f"prefill_S{S}", "B": B, "h": h, "kvh": kvh, "S": S,
-               "hd": hd, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-               "library_ms": lib, "bound_ms": bms, "bound_by": by}
+               "hd": hd, "max_abs_err": err, "ms": ms,
+               "event_ms": time_ms(lambda: kernel(q, k, v), 100),
+               "plain_ms": plain, "library_ms": lib,
+               "library_event_ms": time_ms(lambda: sdpa(q, k, v), 100),
+               "library_note": "scaled_dot_product_attention(is_causal=True, "
+                               "enable_gqa=True)",
+               "bound_ms": bms, "bound_by": by, "plan": plan,
+               "operand_copies": copies}
         rows.append(row)
         print(f"[flash-time] {json.dumps(row)}", flush=True)
     return rows
@@ -696,13 +735,12 @@ def paged_work(q, k_pages, page_map, lengths):
     return n_bytes, 4.0 * rows * (h // kvh) * hd, rows
 
 
-def sdpa_call(q, k_pages, v_pages, page_map, lengths):
-    """``scaled_dot_product_attention`` on the same inputs after a gather
-    of each slot's pages and a boolean mask, both done here, outside any
-    timed region (rows with nothing valid come out NaN there; only the
-    time is kept). Returns the call to time."""
+def sdpa_operands(q, k_pages, v_pages, page_map, lengths):
+    """``scaled_dot_product_attention``'s operands for the same function:
+    each slot's pages gathered and a boolean mask, both made here, outside
+    any timed region (rows with nothing valid come out NaN there; only the
+    time is kept)."""
     import torch
-    import torch.nn.functional as F
     B, h, hd = q.shape
     _, ps, kvh, _ = k_pages.shape
     mp = page_map.shape[1]
@@ -714,10 +752,25 @@ def sdpa_call(q, k_pages, v_pages, page_map, lengths):
     pos = torch.arange(mp * ps, device="cuda")
     mask = (pos[None, :] < lengths[:, None]) \
         & (page_map >= 0).repeat_interleave(ps, dim=1)
-    mask = mask[:, None, None, :]
-    q4 = q[:, :, None, :]
-    return lambda: F.scaled_dot_product_attention(
-        q4, k, v, attn_mask=mask, enable_gqa=True)
+    return q[:, :, None, :].contiguous(), k, v, mask[:, None, None, :]
+
+
+def sdpa_masked(q4, k, v, mask):
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                          enable_gqa=True)
+
+
+def paged_plan_note(q, k_pages, page_map) -> str:
+    """Kernel C's split plan at this shape, or a note where the checkout
+    under test has none."""
+    from repro_torch.kernels import paged_attention as pa
+    B, h, hd = q.shape
+    _, ps, kvh, _ = k_pages.shape
+    if not hasattr(pa, "launch_plan"):
+        return f"no split plan in this checkout: grid {kvh}x{B}"
+    return pa.launch_plan(B, h, kvh, hd, page_map.shape[1] * ps,
+                          q.device)[0].describe(B, kvh)
 
 
 def paged_phase():
@@ -743,30 +796,32 @@ def paged_phase():
     rows = []
     for label, q, kp, vp, pm, ln in cases:
         got = pa.paged_flash_decode(q, kp, vp, pm, ln)
+        again = pa.paged_flash_decode(q, kp, vp, pm, ln)
         want = pa.paged_flash_decode_plain(q, kp, vp, pm, ln)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         tol = PAGED_TOL[str(kp.dtype).split(".")[-1]]
         empty = ln == 0
+        same = bit_equal(got, again)
         ok = bool(torch.isfinite(got).all()) and err <= tol \
-            and bool((got[empty] == 0).all())
+            and bool((got[empty] == 0).all()) and same
         B, h, hd = q.shape
         _, ps, kvh, _ = kp.shape
+        plan = paged_plan_note(q, kp, pm)
         print(f"[paged] {label} B={B} h={h} kvh={kvh} hd={hd} ps={ps} "
               f"mp={pm.shape[1]} {str(kp.dtype).split('.')[-1]} lengths "
               f"{ln.tolist()}: max_abs_err={err:.3e} (tolerance {tol}) "
+              f"repeat bit-equal={same} plan {plan} "
               f"{'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
             fail(f"paged decode {label} disagrees with its plain version "
-                 f"(max_abs_err {err:.3e} > {tol}, or an empty row not 0)")
-        def kernel():
-            return pa.paged_flash_decode(q, kp, vp, pm, ln)
-
-        sdpa = sdpa_call(q, kp, vp, pm, ln)
-        ms = time_ms(kernel, 200)
+                 f"(max_abs_err {err:.3e} > {tol}, or an empty row not 0) "
+                 f"or with itself (bit-equal {same})")
+        ms, copies = cold_ms(pa.paged_flash_decode, (q, kp, vp, pm, ln), 100)
+        sdpa_args = sdpa_operands(q, kp, vp, pm, ln)
+        lib = cold_ms(sdpa_masked, sdpa_args, 100)[0]
         plain = time_ms(lambda: pa.paged_flash_decode_plain(
             q, kp, vp, pm, ln), 20)
-        lib = time_ms(sdpa, 200)
         n_bytes, n_ops, n_rows = paged_work(q, kp, pm, ln)
         kind = "bf16" if kp.dtype == torch.bfloat16 else "f32"
         bms, by = bound_ms(n_bytes, n_ops, kind)
@@ -774,12 +829,15 @@ def paged_phase():
                "page_size": ps, "max_pages": pm.shape[1],
                "lengths": ln.tolist(), "valid_rows": n_rows,
                "type": kind, "max_abs_err": err, "ms": ms,
-               "device_ms": device_ms(kernel),
+               "event_ms": time_ms(
+                   lambda: pa.paged_flash_decode(q, kp, vp, pm, ln), 200),
                "plain_ms": plain, "library_ms": lib,
-               "library_device_ms": device_ms(sdpa),
+               "library_event_ms": time_ms(lambda: sdpa_masked(*sdpa_args),
+                                           200),
                "library_note": "scaled_dot_product_attention after a gather "
                                "and a boolean mask (both untimed)",
                "bytes": n_bytes, "bound_ms": bms, "bound_by": by,
+               "plan": plan, "operand_copies": copies,
                "entry_point_launches": entry_launches}
         rows.append(row)
         print(f"[paged-time] {json.dumps(row)}", flush=True)
@@ -1470,10 +1528,9 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
                 "path": "repro_torch.kernels.paged_attention."
                         "paged_decode_attention and sweep_paged_tilings",
                 "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                "device_ms": c["device_ms"], "plain_ms": c["plain_ms"],
+                "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"],
-                "library_device_ms": c["library_device_ms"],
                 "shape": f"B={c['B']} h={c['h']} kvh={c['kvh']} "
                          f"hd={c['hd']} ps={c['page_size']} "
                          f"mp={c['max_pages']} lengths {c['lengths']} "
@@ -1485,7 +1542,7 @@ def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="build, check and time kernels A, D and E only, "
+                    help="build, check and time kernels A to E only, "
                          "print their rows and no result line")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to build and "
@@ -1496,15 +1553,16 @@ def parse_args(argv):
 
 
 def kernels_only(smi: str) -> int:
-    """Kernels A, D and E at their phases' shapes: checked, timed, one
-    summary line (label, type, ms, library ms) per kernel."""
+    """Kernels A to E at their phases' shapes: checked, timed, one summary
+    line (label, type, ms, library ms, plan) per kernel."""
     build_phase()
     summary = {"nvidia_smi": smi, "src": str(ARGS.src),
-               "gemm": gemm_phase(), "sparse24": sparse24_phase(),
-               "block24": block24_phase()}
-    keep = ("label", "M", "K", "N", "type", "values", "block", "ms",
-            "library_ms", "bound_ms", "plan", "host_us_per_call")
-    for name in ("gemm", "sparse24", "block24"):
+               "gemm": gemm_phase(), "flash": flash_phase(),
+               "sparse24": sparse24_phase(), "block24": block24_phase(),
+               "paged": paged_phase()}
+    keep = ("label", "M", "K", "N", "S", "type", "values", "block", "ms",
+            "event_ms", "library_ms", "bound_ms", "plan", "host_us_per_call")
+    for name in ("gemm", "flash", "sparse24", "block24", "paged"):
         summary[name] = [{k: r[k] for k in keep if k in r}
                          for r in summary[name]]
     print(f"[kernels-only] {json.dumps(summary)}", flush=True)

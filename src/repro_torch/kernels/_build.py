@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, compiled by ``nvcc`` for ``sm_90a`` into ``build/repro_torch_kernels/``
 at the repository root. The sources may include the headers
-``csrc/*.cuh`` (the tile GEMM of kernels A, D and E, ``tile_gemm.cuh``,
-sets its kernels' dynamic shared-memory limit itself). The file name carries a hash of the source, every header
-and the flags, so an edited kernel or header is rebuilt and a stale
-library is never loaded. :func:`build` starts one
+``csrc/*.cuh``: the tile GEMM of kernels A, D and E, ``tile_gemm.cuh``
+(which sets its kernels' dynamic shared-memory limit itself), and the PTX
+wrappers all five share, ``warp_ops.cuh``. The file name carries a hash of
+the source, every header and the flags, so an edited kernel or header is
+rebuilt and a stale library is never loaded. :func:`build` starts one
 ``nvcc`` per source, all at once, and waits for them together.
 
 Pointers and the stream cross into C as ``ctypes.c_void_p``, integers as
@@ -47,8 +48,11 @@ SIGNATURES = {
         "repro_block24_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _P, _P, _P)},
     "paged_attention": {
-        "repro_paged_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _I, _I, _P)},
+        # ... the operands, workspace and counters (null with one split),
+        # shapes, then the split plan (kernels/paged_attention.py): splits,
+        # positions per split; then the pools' type and the stream
+        "repro_paged_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _I, _I, _I, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -49,6 +49,8 @@
 
 #include <mutex>
 
+#include "warp_ops.cuh"
+
 namespace tile_gemm {
 
 enum { IN_BF16 = 0, IN_E4M3 = 1, IN_E5M2 = 2 };
@@ -191,9 +193,6 @@ inline bool encode_tiles(CUtensorMap* m, const void* base, int esize,
 // Shared memory, mbarriers and TMA (device)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 // Orders this thread's shared-memory writes before later reads by the
 // async proxy (wgmma, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -364,30 +363,6 @@ __device__ __forceinline__ int bt_off(int n, int k) {
 // ---------------------------------------------------------------------------
 // The two tiles
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-// d (16 x 8, f32) += a (16 x 16 bf16, row) @ b (16 x 8 bf16, col).
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Small (M <= 16): warp w multiplies columns 16w .. 16w + 15 as two 16 x 8
 // blocks; ldmatrix reads each 8 x 8 piece of A and B as eight swizzled

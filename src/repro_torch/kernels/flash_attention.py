@@ -8,6 +8,11 @@ bottom-right mask of ``ref.flash_attention_ref`` only when Sq == Skv, so a
 causal call must have Sq == Skv (all that prefill uses). Any Sq and Skv run:
 the kernel masks ragged tiles.
 
+The kernel runs both products on the tensor cores (bf16 in, f32 sums; P
+rounded to bf16 for P·V), one block per 32 query rows of one head, its kv
+tiles shared out between four groups of warps and folded in a fixed order:
+:func:`describe_grid` gives its launch shape.
+
 ``flash_attention`` launches the kernel for CUDA tensors and raises on what
 it does not take; for CPU tensors it computes :func:`flash_attention_plain`.
 """
@@ -24,6 +29,15 @@ LAUNCHES = 0
 
 HEAD_DIMS = (32, 64, 128)
 NEG_INF = -1e30
+# Query rows per block and threads per block (csrc/flash_attention.cu BQ, NT)
+BLOCK_Q, BLOCK_THREADS = 32, 256
+
+
+def describe_grid(batch: int, heads: int, sq: int) -> str:
+    """The kernel's grid at this shape: (heads, batch, q tiles)."""
+    tiles = -(-sq // BLOCK_Q)
+    return (f"{BLOCK_Q}-row q tiles, grid {heads}x{batch}x{tiles} = "
+            f"{heads * batch * tiles} blocks of {BLOCK_THREADS} threads")
 
 
 def _check_shapes(q, k, v, causal):
@@ -75,6 +89,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the flash-attention kernel takes contiguous q/k/v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the flash-attention kernel copies 16-byte pieces: "
+                         "q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

@@ -92,8 +92,9 @@ def plan(M: int, N: int, K: int, kind: str, sm_count: int) -> Plan:
     return Plan(tile, bm, bn, bk, _cdiv(steps, per), per, m_tiles, n_tiles)
 
 
-class _Scratch:
-    """One device's split-K workspace and tile counters."""
+class Scratch:
+    """One device's split-K workspace (f32) and counters (int32, 0
+    between launches), grown on demand. Kernel C keeps a set of its own."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -114,20 +115,20 @@ _SCRATCH = {}
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(M: int, N: int, K: int, kind: str,
-                device: torch.device) -> Tuple[Plan, _Scratch]:
+                device: torch.device) -> Tuple[Plan, Scratch]:
     """The plan for a CUDA ``device`` and that device's scratch, grown for
     it. One cached lookup per wrapper call."""
     props = torch.cuda.get_device_properties(device)
     p = plan(M, N, K, kind, props.multi_processor_count)
     scratch = _SCRATCH.get(device)
     if scratch is None:
-        scratch = _SCRATCH[device] = _Scratch(device)
+        scratch = _SCRATCH[device] = Scratch(device)
     if p.splits > 1:
         scratch.reserve(p.splits * M * N, p.m_tiles * p.n_tiles)
     return p, scratch
 
 
-def plan_args(p: Plan, scratch: _Scratch) -> tuple:
+def plan_args(p: Plan, scratch: Scratch) -> tuple:
     """The plan's arguments of a C entry point: tile, splits, steps per
     split, workspace and counters (null with one split)."""
     if p.splits == 1:

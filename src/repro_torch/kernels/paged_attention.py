@@ -11,6 +11,11 @@ Layout: q ``(B, h, hd)``; pools ``(P, page_size, kvh, hd)``; page table
 ``(B, max_pages)`` int32 with ``-1`` = unallocated; ``lengths (B,)`` =
 written positions per slot.
 
+The kernel splits each slot's page walk over several blocks and folds the
+partials in a fixed order (flash decoding): :func:`split_plan` picks the
+splits from the shape alone, so every call on one shape sums in the same
+order and gives the same bits.
+
 :func:`paged_flash_decode` launches the kernel for CUDA tensors and raises
 on what it does not take; for CPU tensors it computes
 :func:`paged_flash_decode_plain`, which returns 0 on a row with no valid
@@ -27,14 +32,17 @@ of ``hopper``; JAX name ``pallas_paged``).
 """
 from __future__ import annotations
 
+import functools
 import time
-from typing import List, Optional
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.core import execution as ex
 from repro_torch.core.characterization import Record
 from repro_torch.kernels import _build
+from repro_torch.kernels import gemm_plan
 from repro_torch.kernels import registry
 
 # Launches of the CUDA kernel since the last reset (chip_smoke.py reads it).
@@ -44,6 +52,12 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 POOL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_GROUP = 16          # query heads per kv head: one warp each
+
+# The kernel walks positions in chunks of CHUNK rows (one per lane) and
+# aims at BLOCKS_PER_SM blocks per SM: about one wave at two blocks per SM,
+# each holding a few chunks in flight.
+CHUNK = 32
+BLOCKS_PER_SM = 2.0
 
 # Page geometries the tiling sweep measures: one (1, page_size, hd) tile
 # per page step (one query row, one page of KV depth-``hd``).
@@ -119,14 +133,87 @@ def paged_flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The split plan: how each slot's walk is cut over blocks
+# ---------------------------------------------------------------------------
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """``splits`` ranges of ``chunks_per_split`` whole chunks each (the last
+    may be shorter) over positions ``0 .. max_pos``."""
+    splits: int
+    chunks_per_split: int
+
+    @property
+    def span(self) -> int:
+        return self.chunks_per_split * CHUNK
+
+    def ranges(self, max_pos: int) -> List[Tuple[int, int]]:
+        """[p0, p1) of each split, in the order the kernel folds them."""
+        return [(z * self.span, min(max_pos, (z + 1) * self.span))
+                for z in range(self.splits)]
+
+    def describe(self, batch: int, kv_heads: int) -> str:
+        return (f"S={self.splits} x {self.span} positions, grid "
+                f"{kv_heads}x{batch}x{self.splits} = "
+                f"{kv_heads * batch * self.splits} blocks")
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(batch: int, kv_heads: int, max_pos: int,
+               sm_count: int) -> SplitPlan:
+    """Splits for a (batch, kv_heads, max_pages * page_size) walk on a card
+    of ``sm_count`` SMs: as many as reach ``BLOCKS_PER_SM * sm_count``
+    blocks, none empty of table positions. A function of the shape only:
+    the lengths live on the card, and the splits never depend on them."""
+    if min(batch, kv_heads, max_pos, sm_count) < 1:
+        raise ValueError(f"no split plan for batch={batch} "
+                         f"kv_heads={kv_heads} max_pos={max_pos} on "
+                         f"{sm_count} SMs")
+    chunks = _cdiv(max_pos, CHUNK)
+    want = min(chunks, max(1, _cdiv(int(BLOCKS_PER_SM * sm_count),
+                                    batch * kv_heads)))
+    per = _cdiv(chunks, want)
+    return SplitPlan(_cdiv(chunks, per), per)
+
+
+_SCRATCH = {}
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(batch: int, heads: int, kv_heads: int, head_dim: int,
+                max_pos: int, device: torch.device
+                ) -> Tuple[SplitPlan, gemm_plan.Scratch]:
+    """The split plan on a CUDA ``device`` and that device's workspace
+    (each split's f32 partial m, l and acc per query head) and counters
+    (one per slot and kv head), grown for it. One cached lookup per call;
+    one set per device serves one stream, which is all the port uses."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    p = split_plan(batch, kv_heads, max_pos, sms)
+    scratch = _SCRATCH.get(device)
+    if scratch is None:
+        scratch = _SCRATCH[device] = gemm_plan.Scratch(device)
+    if p.splits > 1:
+        group = heads // kv_heads
+        part = group * head_dim + -(-2 * group // 4) * 4   # 16-byte pieces
+        scratch.reserve(batch * kv_heads * p.splits * part,
+                        batch * kv_heads)
+    return p, scratch
+
+
+# ---------------------------------------------------------------------------
 # The wrapper around the CUDA kernel
 # ---------------------------------------------------------------------------
 
 def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, page_map: torch.Tensor,
                        lengths: torch.Tensor) -> torch.Tensor:
-    """Fused page-walking flash decode → ``(B, h, hd)`` f32. Page ids are
-    not checked against the pool size (that costs a device sync)."""
+    """Fused page-walking flash decode → ``(B, h, hd)`` f32, one launch of
+    the kernel (which folds its splits itself). Page ids are not checked
+    against the pool size (that costs a device sync)."""
     tensors = (q, k_pages, v_pages, page_map, lengths)
     devs = {t.device.type for t in tensors}
     if devs == {"cpu"}:
@@ -158,11 +245,15 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty((B, h, hd), dtype=torch.float32, device=q.device)
     if out.numel() == 0 or mp == 0 or ps == 0:
         return out.zero_()
+    plan, scratch = launch_plan(B, h, kvh, hd, mp * ps, q.device)
+    ws, counters = (scratch.ws.data_ptr(), scratch.counters.data_ptr()) \
+        if plan.splits > 1 else (None, None)
     lib = _build.load("paged_attention")
     status = lib.repro_paged_flash_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_map.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, h, kvh, hd, ps, mp, int(k_pages.dtype == torch.bfloat16),
+        page_map.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws,
+        counters, B, h, kvh, hd, ps, mp, plan.splits, plan.span,
+        int(k_pages.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "repro_paged_flash_decode")
     global LAUNCHES

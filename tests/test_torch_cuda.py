@@ -45,20 +45,48 @@ def test_cuda_gemm_kernel_matches_plain(m, k, n, dtype):
                                rtol=1e-5, atol=1e-3)
 
 
+def _same_bits(a, b):
+    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [128, 77, 1])
-def test_cuda_flash_kernel_matches_plain(s):
+@pytest.mark.parametrize("s", [1, 77, 128, 200, 512])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_cuda_flash_kernel_matches_plain(s, hd, group):
+    """Causal, two kv heads of ``group`` query heads each; ragged S masks a
+    part tile. P is rounded to bf16 for P V: a few 1e-3 on outputs of order
+    1, under 2e-2. A second call gives the same bits (no split, no
+    atomics)."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    q = torch.randn((1, 8, s, 128), generator=gen, device="cuda").bfloat16()
-    k = torch.randn((1, 2, s, 128), generator=gen, device="cuda").bfloat16()
-    v = torch.randn((1, 2, s, 128), generator=gen, device="cuda").bfloat16()
+    q = torch.randn((1, 2 * group, s, hd), generator=gen,
+                    device="cuda").bfloat16()
+    k = torch.randn((1, 2, s, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((1, 2, s, hd), generator=gen, device="cuda").bfloat16()
     before = fa.LAUNCHES
     got = fa.flash_attention(q, k, v, causal=True)
     assert fa.LAUNCHES == before + 1
     torch.testing.assert_close(got.float(),
                                fa.flash_attention_plain(q, k, v).float(),
                                rtol=2e-2, atol=2e-2)
+    assert _same_bits(got, fa.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", [(77, 200), (128, 33), (1, 512)])
+def test_cuda_flash_kernel_without_the_mask(sq, skv):
+    """Non-causal, Sq != Skv: every query row sees every key."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q = torch.randn((2, 8, sq, 64), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((2, 2, skv, 64), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((2, 2, skv, 64), generator=gen, device="cuda").bfloat16()
+    got = fa.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(
+        got.float(), fa.flash_attention_plain(q, k, v, causal=False).float(),
+        rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.cuda
@@ -171,9 +199,9 @@ def test_cuda_pack_matches_the_cpu_bytes():
                            cpu.values.view(torch.uint8))
 
 
-def _paged_inputs(B, h, kvh, hd, ps, mp, dtype, seed):
+def _paged_inputs(B, h, kvh, hd, ps, mp, dtype, seed, idle_last=True):
     """Pools of B*mp+1 pages; slot b owns pages in a shuffled order, the
-    last slot none (an idle slot)."""
+    last slot none (an idle slot) unless ``idle_last`` is False."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     pool = B * mp + 1
     q = torch.randn((B, h, hd), generator=gen, device="cuda").to(dtype)
@@ -184,29 +212,56 @@ def _paged_inputs(B, h, kvh, hd, ps, mp, dtype, seed):
     perm = torch.randperm(pool - 1, generator=torch.Generator().manual_seed(
         seed)).to(torch.int32)
     pm = perm[:B * mp].reshape(B, mp).clone()
-    pm[-1] = -1
+    if idle_last:
+        pm[-1] = -1
     return q, kp, vp, pm.cuda()
 
 
+# (dtype, hd, ps, lengths, group, table): "idle" tables leave the last slot
+# without pages, "full" give every slot all of its pages ("edges" too, with
+# lengths that end on a split boundary), "hole" also unmaps a page in the
+# middle of slot 0's walk (its rows are masked)
+PAGED_CASES = [
+    (torch.float32, 16, 8, (13, 32, 1), 2, "idle"),
+    (torch.bfloat16, 128, 16, (129, 78, 1, 0, 0), 4, "idle"),
+    (torch.bfloat16, 128, 8, (64, 3, 0), 4, "idle"),
+    (torch.bfloat16, 64, 32, (100, 256, 0), 4, "idle"),
+    # lengths that end on a split boundary (4 x 8 x 512: splits of 64)
+    (torch.bfloat16, 128, 16, (64, 128, 512, 448), 4, "edges"),
+    (torch.bfloat16, 128, 8, (512, 512, 512, 512), 4, "full"),
+    (torch.bfloat16, 128, 16, (512, 512, 512, 512), 4, "full"),
+    (torch.bfloat16, 128, 32, (512, 512, 512, 512), 4, "full"),
+    (torch.bfloat16, 128, 16, (300, 77, 1, 0), 16, "idle"),
+    (torch.float32, 128, 16, (300, 200, 512, 9), 16, "hole"),
+    (torch.bfloat16, 32, 12, (250, 37, 1), 4, "hole"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,hd,ps,lengths", [
-    (torch.float32, 16, 8, (13, 32, 1)),
-    (torch.bfloat16, 128, 16, (129, 78, 1, 0, 0)),
-    (torch.bfloat16, 128, 8, (64, 3, 0)),
-    (torch.bfloat16, 64, 32, (100, 256, 0)),
-])
-def test_cuda_paged_decode_kernel_matches_plain(dtype, hd, ps, lengths):
+@pytest.mark.parametrize("dtype,hd,ps,lengths,group,table", PAGED_CASES)
+def test_cuda_paged_decode_kernel_matches_plain(dtype, hd, ps, lengths,
+                                                group, table):
     """Rows with no valid position (an idle slot, a length of 0) give 0 on
     both sides. f32 pools: JAX's own tolerance, 2e-5; bf16 pools: both
-    sides sum the same bf16 values in f32 in another order, 1e-4."""
+    sides sum the same bf16 values in f32 in another order, 1e-4. The
+    splits are folded in a fixed order: a second call gives the same
+    bits."""
     _need_cuda()
     B = len(lengths)
     mp = max(1, -(-max(lengths) // ps))
-    kvh, h = (2, 4) if hd == 16 else (8, 32)
-    q, kp, vp, pm = _paged_inputs(B, h, kvh, hd, ps, mp, dtype, seed=6)
-    if lengths[-1] == 0 and B > 3:
+    kvh = 2 if hd == 16 or dtype == torch.float32 else 8
+    h = kvh * group
+    q, kp, vp, pm = _paged_inputs(B, h, kvh, hd, ps, mp, dtype, seed=6,
+                                  idle_last=table == "idle")
+    if table == "idle" and lengths[-1] == 0 and B > 3:
         pm[-2, 1:] = -1           # a slot with a page but length 0
+    if table == "hole":
+        pm[0, mp // 2] = -1
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    plan = pa.launch_plan(B, h, kvh, hd, mp * ps, q.device)[0]
+    if table == "edges":
+        assert plan.splits > 1
+        assert all(n % plan.span == 0 for n in lengths[:3])
     before = pa.LAUNCHES
     got = pa.paged_flash_decode(q, kp, vp, pm, ln)
     assert pa.LAUNCHES == before + 1
@@ -215,3 +270,4 @@ def test_cuda_paged_decode_kernel_matches_plain(dtype, hd, ps, lengths):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     empty = torch.tensor([n == 0 for n in lengths], device="cuda")
     assert (got[empty] == 0).all()
+    assert _same_bits(got, pa.paged_flash_decode(q, kp, vp, pm, ln))
