@@ -17,7 +17,14 @@ first differ from the hopper run's only at a near-tie (top-2 margin under
 twice LOGIT_TOL). ``bf16:dense:hopper`` is served a second time from a
 paged cache (32 pages of 16 rows, a quarter of the dense cache), whose
 greedy tokens must equal the dense run's exactly. A profiled decode step
-gives the device's busy time and idle share. Kernels C (paged flash
+gives the device's busy time and idle share. Then speculative decoding
+(``ServeSession(speculative=...)``, ``bf16:dense:hopper`` verify) in three
+arms, a bf16 draft (k=4, every draft accepted), an ``fp8:dense:hopper``
+draft (k=4, kernel A in e4m3) and, paged, an ``fp8:sparse24:hopper`` draft
+(k=2, kernel D), each with greedy tokens equal to the plain run's and its
+launches counted per verify and draft step. A ``[streams]`` phase runs
+split launches of kernels A, D and C on two streams at once, bit-equal to
+the same calls made alone. Kernels C (paged flash
 decode) and E (block-2:4) are on no serving path, as in the reference:
 their entry points (``kernels.paged_attention.paged_decode_attention`` and
 ``sweep_paged_tilings``, ``kernels.ops.block24_matmul``) are driven at
@@ -874,6 +881,75 @@ def sweep_phase():
 
 
 # ---------------------------------------------------------------------------
+# Split scratch per stream: two split launches in flight on two streams
+# ---------------------------------------------------------------------------
+
+STREAM_ROUNDS = 8
+
+
+def streams_phase():
+    """Kernel A at the decode gate/up shape, D at its own, and C at the
+    serving shape, each with a plan that splits (so its launches share a
+    workspace and counters on one stream): two input sets, each called
+    alone, then both called on two streams at once, STREAM_ROUNDS times.
+    Every output must be bit-equal to the call made alone."""
+    import torch
+    from repro_torch.core import sparsity as sp
+    from repro_torch.kernels import fp8_matmul as fm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sparse24_matmul as sm
+    h, kvh, hd = (PAGED_GEOMETRY[k] for k in ("h", "kvh", "hd"))
+
+    def call(kernel, seed):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + seed)
+        if kernel == "C":
+            q, kp, vp = (torch.randn(shape, generator=gen, device="cuda")
+                         .bfloat16() for shape in
+                         ((SLOTS, h, hd), (129, 16, kvh, hd),
+                          (129, 16, kvh, hd)))
+            pm, ln = serving_tables()
+            plan = paged_plan_note(q, kp, pm)
+            return (lambda: pa.paged_flash_decode(q, kp, vp, pm, ln)), plan
+        x = torch.randn((SLOTS, 4096), generator=gen,
+                        device="cuda").bfloat16()
+        w = (torch.randn((4096, 14336), generator=gen, device="cuda")
+             * 4096 ** -0.5).bfloat16()
+        if kernel == "A":
+            return (lambda: fm.fp8_matmul(x, w, torch.bfloat16),
+                    plan_note(SLOTS, 14336, 4096, "gemm"))
+        values, meta = sp.pack_24(sp.prune_24(w))
+        return (lambda: sm.sparse24_matmul(x, values, meta, torch.bfloat16),
+                plan_note(SLOTS, 14336, 4096, "sparse24"))
+
+    rows = []
+    for kernel in ("A", "D", "C"):
+        (one, plan), (two, _) = call(kernel, 11), call(kernel, 12)
+        alone = [one(), two()]
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+        outs = [[], []]
+        t0 = time.perf_counter()
+        for _ in range(STREAM_ROUNDS):
+            for i, (st, fn) in enumerate(zip(streams, (one, two))):
+                with torch.cuda.stream(st):
+                    outs[i].append(fn())
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        same = all(bit_equal(o, want) for want, got in zip(alone, outs)
+                   for o in got)
+        print(f"[streams] kernel {kernel} ({plan}): {STREAM_ROUNDS} rounds "
+              f"of two launches on two streams, every output bit-equal to "
+              f"its call alone: {same} ({wall_ms:.2f} ms wall)", flush=True)
+        if not same:
+            fail(f"kernel {kernel} on two streams differs from its call "
+                 "alone: the split scratch is shared across streams")
+        rows.append({"kernel": kernel, "plan": plan, "bit_equal": same})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Set-up
 # ---------------------------------------------------------------------------
 
@@ -942,6 +1018,7 @@ def zero_launch_counts() -> None:
     from repro_torch.kernels import sparse24_matmul as sm
     fm.LAUNCHES = fa.LAUNCHES = pa.LAUNCHES = sm.LAUNCHES = \
         sm.BLOCK24_LAUNCHES = 0
+    fm.TYPE_LAUNCHES.update(dict.fromkeys(fm.TYPE_LAUNCHES, 0))
 
 
 def _margin(row) -> float:
@@ -1099,6 +1176,8 @@ def serve_phase():
                                              launches)
     torch.cuda.empty_cache()
     results["bf16:sparse24:hopper"] = serve_sparse24(params, cfg, requests)
+    torch.cuda.empty_cache()
+    results.update(serve_spec(params, cfg))
     del params
     torch.cuda.empty_cache()
     return results
@@ -1231,6 +1310,174 @@ def serve_paged(params, cfg, requests, dense_run, dense_launches):
     res.update(profile_decode(session(), requests(),
                               res["decode_ms_per_step"]))
     return res
+
+
+# The speculative run: 4 requests of 16 new tokens from prompts of these
+# lengths; the 499-token one is cut at max_len after 13 decode positions,
+# mid-commit whenever its last step's accepted prefix runs past the end.
+SPEC_PROMPT_LENS = (128, 77, 128, 499)
+# (tag, draft policy, k, paged): the session's policy is bf16:dense:hopper
+SPEC_ARMS = (("spec bf16-draft k4", "bf16:dense:hopper", 4, False),
+             ("spec fp8-draft k4", "fp8:dense:hopper", 4, False),
+             ("spec fp8:sparse24-draft k2 paged", "fp8:sparse24:hopper", 2,
+              True))
+# the paged arm's pool: 56 pages of 16 rows, what the four requests hold at
+# their longest in plain decode (9 + 6 + 9 + 32), one page more than they
+# take at admission: candidate pages are grown into the pool's last free
+# pages, and a step whose candidates do not fit falls back to plain decode
+SPEC_PAGES = 56
+
+
+def drive_spec(sess, requests):
+    """Serve ``requests`` one admission and one decode step at a time (host
+    clock around work that ends in a device sync), keeping each decode
+    step's depth: k of a speculative step (its verify logits are (slots,
+    k, Vp)), 1 of a plain one."""
+    import torch
+    for r in requests:
+        sess.submit(r)
+    prefill_s, decode_s, depths = [], [], []
+    t_start = time.perf_counter()
+    while sess.queue or sess.n_active:
+        while sess.queue and sess.can_admit(sess.queue[0]):
+            t0 = time.perf_counter()
+            sess.admit(sess.queue.pop(0))
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sess.decode_once()
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+        lg = sess.last_logits
+        depths.append(lg.shape[1] if lg.dim() == 3 else 1)
+    return {"outs": {r.uid: list(r.out) for r in sess.completed},
+            "prefill_s": prefill_s, "decode_s": decode_s, "depths": depths,
+            "wall_s": time.perf_counter() - t_start}
+
+
+def spec_launches_expected(cfg, draft, run) -> dict:
+    """The launches a speculative run must make, from its prefills and
+    each decode step's depth: A 225 per prefill and per verify step (k per
+    speculative step, 1 per plain one), B one per layer per prefill, and
+    per draft step (k - 1 per speculative step) the draft's: 225 on A in
+    bf16, or 224 on A in e4m3 and the head on A in bf16, or 224 packed on
+    D and the head on A."""
+    per = 7 * cfg.num_layers + 1
+    n_pre = len(run["prefill_s"])
+    verify = sum(run["depths"])
+    drafts = sum(k - 1 for k in run["depths"])
+    bf16 = per * (n_pre + verify) + (per if draft.startswith("bf16")
+                                     else 1) * drafts
+    e4m3 = (per - 1) * drafts if draft == "fp8:dense:hopper" else 0
+    packed = (per - 1) * drafts if "sparse24" in draft else 0
+    return {"launches": {"gemm": bf16 + e4m3,
+                         "flash_attention": cfg.num_layers * n_pre,
+                         "paged_attention": 0, "sparse24_gemm": packed,
+                         "block24_gemm": 0},
+            "gemm_by_type": {"bf16": bf16, "e4m3": e4m3, "e5m2": 0}}
+
+
+def serve_spec(params, cfg):
+    """Speculative serving through ``ServeSession(speculative=...)`` from
+    the same weights: first the plain ``bf16:dense:hopper`` run of the
+    requests, then each arm of SPEC_ARMS. Each arm's greedy tokens must
+    equal the plain run's exactly (the same backend runs both), the
+    bf16-draft arm must accept every draft, and the launch counters must
+    match ``spec_launches_expected``; its acceptance, tokens per step and
+    ms per committed token are printed beside the plain run's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import execution as ex
+    from repro_torch.kernels import fp8_matmul as fm
+    from repro_torch.models.layers import RuntimeCfg
+    from repro_torch.runtime.serve_loop import Request, ServeSession
+
+    rng = np.random.default_rng(SEED + 16)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in SPEC_PROMPT_LENS]
+
+    def requests():
+        return [Request(uid=i, prompt=p, max_new=MAX_NEW)
+                for i, p in enumerate(prompts)]
+
+    def session(spec=None, paged=False):
+        kw = dict(paged=True, page_size=PAGE_SIZE, pages=SPEC_PAGES) \
+            if paged else {}
+        return ServeSession(
+            params, cfg, batch_slots=SLOTS, max_len=MAX_LEN,
+            rt=RuntimeCfg(use_pallas=True),
+            policy=ex.parse_policy("bf16:dense:hopper"), speculative=spec,
+            device="cuda", **kw)
+
+    plain = drive_spec(session(), requests())
+    if any(len(o) != MAX_NEW for u, o in plain["outs"].items() if u != 3) \
+            or len(plain["outs"][3]) != MAX_LEN - SPEC_PROMPT_LENS[3] + 1:
+        fail("spec: the plain run did not serve the requests in full")
+    plain_tok = sum(len(o) - 1 for o in plain["outs"].values())
+    plain_ms_tok = 1e3 * sum(plain["decode_s"]) / plain_tok
+    print(f"[spec] plain bf16:dense:hopper: {len(plain['decode_s'])} decode "
+          f"steps, {plain_tok} decode tokens, "
+          f"{plain_ms_tok:.2f} ms per committed token", flush=True)
+    results = {}
+    for tag, draft, k, paged in SPEC_ARMS:
+        # set-up (a 2:4 draft packs its copy of the weights on the card)
+        # ends in a sync, so that no prefill below waits for it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess = session({"k": k, "draft_policy": draft}, paged)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        zero_launch_counts()
+        run = drive_spec(sess, requests())
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        by_type = dict(fm.TYPE_LAUNCHES)
+        totals = {key: sum(t[key] for t in sess.spec_totals.values())
+                  for key in ("steps", "drafted", "accepted", "committed")}
+        trims = sess.pager.trim_count if paged else 0
+        del sess
+        torch.cuda.empty_cache()
+        same = sum(run["outs"][u] == plain["outs"][u] for u in plain["outs"])
+        want = spec_launches_expected(cfg, draft, run)
+        n_tok = sum(len(o) - 1 for o in run["outs"].values())
+        steps = len(run["decode_s"])
+        res = {"policy": tag, "draft_policy": draft, "k": k, "paged": paged,
+               "requests": len(run["outs"]), "tokens_equal_plain": same,
+               "decode_steps": steps,
+               "speculative_steps": sum(d > 1 for d in run["depths"]),
+               "acceptance": totals, "accept_rate":
+                   totals["accepted"] / max(1, totals["drafted"]),
+               "tokens_per_slot_step": totals["committed"]
+                   / max(1, totals["steps"]),
+               "tokens_per_step": n_tok / steps,
+               "ms_per_committed_token": 1e3 * sum(run["decode_s"]) / n_tok,
+               "plain_ms_per_committed_token": plain_ms_tok,
+               "decode_ms_per_step": mean_ms(run["decode_s"]),
+               "plain_decode_ms_per_step": mean_ms(plain["decode_s"]),
+               "prefill_ms": mean_ms(run["prefill_s"]),
+               "session_setup_s": setup_s, "page_trims": trims, "launches": launches,
+               "gemm_by_type": by_type, "expected": want}
+        print(f"[spec] {tag}: greedy tokens equal to the plain run for "
+              f"{same}/{len(plain['outs'])} requests; drafted "
+              f"{totals['drafted']} accepted {totals['accepted']} committed "
+              f"{totals['committed']} ({res['accept_rate']:.3f}); "
+              f"{res['tokens_per_slot_step']:.2f} tokens per slot-step; "
+              f"{res['ms_per_committed_token']:.2f} ms per committed token "
+              f"(plain {plain_ms_tok:.2f}); launches {launches}, A by type "
+              f"{by_type}, expected {want}", flush=True)
+        print(f"[spec-time] {json.dumps(res)}", flush=True)
+        if same != len(plain["outs"]):
+            fail(f"{tag}: greedy tokens differ from the plain run")
+        if draft == "bf16:dense:hopper" and \
+                totals["accepted"] != totals["drafted"]:
+            fail(f"{tag}: the draft equals the verify, yet only "
+                 f"{totals['accepted']} of {totals['drafted']} drafts were "
+                 "accepted")
+        if launches != want["launches"] or by_type != want["gemm_by_type"]:
+            fail(f"{tag}: kernel launches {launches} (A by type {by_type}), "
+                 f"expected {want}")
+        results[tag] = res
+    return results
 
 
 def tree_bytes(tree) -> int:
@@ -1586,6 +1833,7 @@ def main() -> int:
     block24_rows = block24_phase()
     paged_rows = paged_phase()
     _, sweep_launches = sweep_phase()
+    streams_phase()
     serve = serve_phase()
     print(json.dumps(kernel_line(gemm_rows, flash_rows, sparse24_rows,
                                  block24_rows, paged_rows, sweep_launches,

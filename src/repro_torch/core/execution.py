@@ -114,6 +114,19 @@ class ExecutionPolicy:
         """Compact string form, parseable by :func:`parse_policy`."""
         return f"{self.precision}:{self.sparsity}:{self.backend}"
 
+    def full_spec(self) -> str:
+        """Round-trippable string form: :meth:`spec` plus block shapes and
+        stream budget when set."""
+        parts = [self.spec()]
+        if all(b is not None
+               for b in (self.block_m, self.block_n, self.block_k)):
+            parts.append(f"{self.block_m}x{self.block_n}x{self.block_k}")
+        if self.streams != 1:
+            parts.append(f"streams={self.streams}")
+        if not self.overlap:
+            parts.append("no_overlap")
+        return ":".join(parts)
+
     def describe(self) -> str:
         base = self.spec() + f" streams={self.streams}"
         if not self.overlap:

@@ -16,14 +16,22 @@
 // Design: the TPU kernel walked the kept blocks along a sequential grid axis
 // whose BlockSpec index map looked kept_idx up at compile time. Here kept is
 // a device int32 array, and the tile GEMM of tile_gemm.cuh (shared with
-// kernels A and D) runs the K loop over the packed K/2 rows, split over
-// enough blocks to fill the card (kernels/gemm_plan.py), through its 4-stage
-// TMA ring: W_packed's tile is copied as kernel A copies B, and X's tile is
-// an address map -- with block % 64 == 0 a K step's 64 packed columns are 64
+// kernels A and D) runs the K loop over the packed K/2 rows through its TMA
+// ring: W_packed's tile is copied as kernel A copies B, and X's tile is an
+// address map -- with block % 64 == 0 a K step's 64 packed columns are 64
 // dense columns of one kept block, one TMA copy from the column kept names
-// (other blocks take element loads through kept). Decode multiplies with
-// mma.sync m16n8k16, prefill with wgmma m64n128k16. Ragged M, N and K/2 are
+// (other blocks take element loads through kept). Ragged M, N and K/2 are
 // zero-filled (the TPU kernel asserted divisibility).
+//
+// E's schedule is its own (kernels/gemm_plan.py). Decode (M <= 16): the
+// Small tile, mma.sync m16n8k16, one block per 64 output columns and no
+// split of K (224 blocks at N = 14336): E's K/2 is half of A's K, and a
+// split's fix-up cost more than its blocks gained. Prefill: the Deep tile,
+// wgmma m64n128k16 over a 6-stage ring. Its 112 tiles at N = 14336 leave 20
+// of 132 SMs idle, and K/2 = 2048 is only 32 steps; with 4 steps in flight
+// per block, where A's ring keeps 2, the busy SMs read the weight at the
+// card's rate. (Timed against it: a stream-K schedule over 132 persistent
+// blocks and a 128 x 64 tile at two blocks per SM, both slower: PERF.md.)
 #include "tile_gemm.cuh"
 
 namespace {
@@ -118,8 +126,8 @@ int run(const void* x, const void* w, const int* kept, void* c, int M, int N,
 // indices; c (M, N) of out_type (0 f32, 1 bf16). K % 2 == 0, block > 0.
 // vec_x: x's base is 16-byte aligned, K % 8 == 0 and block % 64 == 0.
 // vec_w: w's base is 16-byte aligned and N % 8 == 0. The plan as for
-// repro_gemm, over the K/2 packed rows (kernels/gemm_plan.py). Returns the
-// CUDA status.
+// repro_gemm, over the K/2 packed rows (kernels/gemm_plan.py): tile Small
+// or Deep. Returns the CUDA status.
 extern "C" int repro_block24_gemm(const void* x, const void* w,
                                   const void* kept, void* c, int M, int N,
                                   int K, int block, int out_type, int vec_x,
@@ -131,8 +139,8 @@ extern "C" int repro_block24_gemm(const void* x, const void* w,
   if (tile == TILE_SMALL)
     return run<Small>(x, w, kp, c, M, N, K, block, out_type, vec_x, vec_w,
                       splits, per, ws, counters, s);
-  if (tile == TILE_WIDE)
-    return run<Wide>(x, w, kp, c, M, N, K, block, out_type, vec_x, vec_w,
+  if (tile == TILE_DEEP)
+    return run<Deep>(x, w, kp, c, M, N, K, block, out_type, vec_x, vec_w,
                      splits, per, ws, counters, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -37,9 +37,9 @@
 //   of a (slot, kv head) to arrive (a per-(slot, kv head) counter, which that
 //   block resets to 0) copies the partials into shared memory in one round
 //   trip (16-byte cp.async) and folds them in the order 0 .. S-1. No float
-//   atomics: every call gives the same bits. The counters
-//   assume one stream (the port has one); concurrent streams will need a set
-//   of counters and a workspace each.
+//   atomics: every call gives the same bits. Each stream has a workspace
+//   and counters of its own (kernels/paged_attention.py SCRATCH), so calls
+//   on two streams never mix their partials.
 // - Copies in flight. The block loads its slice of the page table into
 //   shared memory once, then streams K and V rows, in the pool's own type,
 //   through a ring of STAGES chunks with 16-byte cp.async: the next chunks

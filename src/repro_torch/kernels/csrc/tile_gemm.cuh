@@ -8,8 +8,9 @@
 // operand tiles (in place for bf16; fp8 widened, 2:4 decompressed into a
 // separate buffer). Everything else is here:
 //
-// * The K loop is a ring of 4 shared-memory stages. One thread copies each
-//   step's tiles with the Tensor Memory Accelerator (TMA: one bulk copy per
+// * The K loop is a ring of shared-memory stages (4; 6 for kernel E's
+//   prefill). One thread copies each step's tiles with the Tensor Memory
+//   Accelerator (TMA: one bulk copy per
 //   64-column box, described by a tensor map the host encodes, or finds
 //   in its table, per call; zero-filled past the matrix edges) and arms the stage's mbarrier with the
 //   bytes to expect; the block waits on it. Steps k+1 .. k+AHEAD are in
@@ -22,23 +23,24 @@
 //   the H100 before this layout: 16-byte cp.async copies into wgmma's
 //   unswizzled core matrices, and TMA boxes 16 bytes wide, each moved half a
 //   line per request and ran at half the bytes per second.)
-// * Two tiles (the planner in kernels/gemm_plan.py picks one and mirrors
+// * Three tiles (the planner in kernels/gemm_plan.py picks one and mirrors
 //   this table): Small, M <= 16 (decode), 16 x 64 x 64, four warps each
 //   multiplying 16 columns with mma.sync m16n8k16 fed by ldmatrix -- wgmma's
 //   64-row minimum would waste 15/16 of every product on these bytes-bound
 //   shapes; Wide, M > 16 (prefill), 128 x 128 x 64, two warpgroups each
 //   issuing bf16 wgmma.mma_async m64n128k16 for 64 rows (A K-major, B N-major
-//   through the transpose bit or K-major), the f32 sums in registers. Wide
-//   keeps one step's wgmma running while the next step's copies are issued.
+//   through the transpose bit or K-major), the f32 sums in registers; Deep,
+//   kernel E's Wide with a ring of 6 stages. Wide keeps one step's wgmma
+//   running while the next step's copies are issued.
 // * Split-K: the planner cuts K into `splits` ranges of whole BK steps so
 //   that the grid (m tiles, n tiles, splits) fills the card. With one split a
 //   block writes C itself. Otherwise each block writes its f32 partial sums
 //   to its split's slice of a workspace (splits, M, N); the last block of a
 //   tile to arrive (a per-tile counter, which that block resets to 0) sums
 //   the slices in split order 0 .. splits-1 and rounds once into C. No float
-//   atomics: the same plan gives the same bits on every run. The counters
-//   assume one stream (the port has one); concurrent streams will need a
-//   set of counters and a workspace each.
+//   atomics: the same plan gives the same bits on every run. Each stream
+//   has a workspace and counters of its own (gemm_plan.StreamScratch), so
+//   launches on two streams never mix their partial sums.
 #pragma once
 
 #include <cuda.h>
@@ -55,7 +57,7 @@ namespace tile_gemm {
 
 enum { IN_BF16 = 0, IN_E4M3 = 1, IN_E5M2 = 2 };
 enum { OUT_F32 = 0, OUT_BF16 = 1 };
-enum { TILE_SMALL = 0, TILE_WIDE = 1 };
+enum { TILE_SMALL = 0, TILE_WIDE = 1, TILE_DEEP = 2 };
 // What an Op's operands() wrote into shared memory: nothing, only what its
 // own warp reads, or what the whole block reads.
 enum { WROTE_NONE = 0, WROTE_WARP = 1, WROTE_BLOCK = 2 };
@@ -491,10 +493,16 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 }
 
 // Wide (M > 16): two warpgroups, each issuing wgmma m64n128k16 for 64 rows
-// of the 128 x 128 tile, the f32 sums in registers (64 a thread).
-struct Wide {
+// of the 128 x 128 tile, the f32 sums in registers (64 a thread). Kernels A
+// and D run a ring of 4 stages (Wide). Kernel E's prefill runs 6 (Deep): its
+// 112 tiles fill one partial wave with no split (kernels/gemm_plan.py), and
+// 4 steps in flight where Wide has 2 keep its short K loop of 32 steps
+// reading at the rate of the whole card.
+template <int STAGES_>
+struct WideT {
   static constexpr bool WIDE = true;
-  static constexpr int BM = 128, BN = 128, BK = 64, NT = 256, STAGES = 4;
+  static constexpr int BM = 128, BN = 128, BK = 64, NT = 256,
+                       STAGES = STAGES_;
   static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2;
   struct Acc {
     float d[BN / 2];
@@ -561,6 +569,8 @@ struct Wide {
     }
   }
 };
+typedef WideT<4> Wide;
+typedef WideT<6> Deep;
 
 // ---------------------------------------------------------------------------
 // The kernel

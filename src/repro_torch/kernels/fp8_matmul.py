@@ -18,8 +18,12 @@ from repro_torch.kernels import _build, gemm_plan
 
 # Launches of the CUDA kernel since the last reset (chip_smoke.py reads it).
 LAUNCHES = 0
+# The same launches by operand type (a speculative fp8 draft shows as e4m3).
+TYPE_LAUNCHES = {"bf16": 0, "e4m3": 0, "e5m2": 0}
 
 _IN_TYPES = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
+_TYPE_NAMES = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "e4m3",
+               torch.float8_e5m2: "e5m2"}
 _OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,14 +62,16 @@ def fp8_matmul(x: torch.Tensor, w: torch.Tensor,
     if M == 0 or N == 0:
         return out
     lib = _build.load("gemm")
-    plan, scratch = gemm_plan.launch_plan(M, N, K, "gemm", x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     status = lib.repro_gemm(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
         _IN_TYPES[x.dtype], _OUT_TYPES[out_dtype],
         int(_aligned(x, K)), int(_aligned(w, N)),
-        *gemm_plan.plan_args(plan, scratch),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *gemm_plan.plan_args(
+            gemm_plan.launch_plan(M, N, K, "gemm", x.device), x.device,
+            stream), stream)
     _build.check(status, "repro_gemm")
     global LAUNCHES
     LAUNCHES += 1
+    TYPE_LAUNCHES[_TYPE_NAMES[x.dtype]] += 1
     return out

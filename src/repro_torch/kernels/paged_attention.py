@@ -180,28 +180,26 @@ def split_plan(batch: int, kv_heads: int, max_pos: int,
     return SplitPlan(_cdiv(chunks, per), per)
 
 
-_SCRATCH = {}
+# Kernel C's workspace and counters, one set per stream (gemm_plan's).
+SCRATCH = gemm_plan.StreamScratch()
 
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(batch: int, heads: int, kv_heads: int, head_dim: int,
                 max_pos: int, device: torch.device
-                ) -> Tuple[SplitPlan, gemm_plan.Scratch]:
-    """The split plan on a CUDA ``device`` and that device's workspace
-    (each split's f32 partial m, l and acc per query head) and counters
-    (one per slot and kv head), grown for it. One cached lookup per call;
-    one set per device serves one stream, which is all the port uses."""
+                ) -> Tuple[SplitPlan, int, int]:
+    """The split plan on a CUDA ``device`` and the scratch it needs: the
+    workspace floats (each split's f32 partial m, l and acc per query head)
+    and counters (one per slot and kv head); 0 and 0 with one split. One
+    cached lookup per call; the set itself is the launching stream's
+    (:data:`SCRATCH`)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     p = split_plan(batch, kv_heads, max_pos, sms)
-    scratch = _SCRATCH.get(device)
-    if scratch is None:
-        scratch = _SCRATCH[device] = gemm_plan.Scratch(device)
-    if p.splits > 1:
-        group = heads // kv_heads
-        part = group * head_dim + -(-2 * group // 4) * 4   # 16-byte pieces
-        scratch.reserve(batch * kv_heads * p.splits * part,
-                        batch * kv_heads)
-    return p, scratch
+    if p.splits == 1:
+        return p, 0, 0
+    group = heads // kv_heads
+    part = group * head_dim + -(-2 * group // 4) * 4   # 16-byte pieces
+    return p, batch * kv_heads * p.splits * part, batch * kv_heads
 
 
 # ---------------------------------------------------------------------------
@@ -245,16 +243,19 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty((B, h, hd), dtype=torch.float32, device=q.device)
     if out.numel() == 0 or mp == 0 or ps == 0:
         return out.zero_()
-    plan, scratch = launch_plan(B, h, kvh, hd, mp * ps, q.device)
-    ws, counters = (scratch.ws.data_ptr(), scratch.counters.data_ptr()) \
-        if plan.splits > 1 else (None, None)
+    plan, n_floats, n_counters = launch_plan(B, h, kvh, hd, mp * ps,
+                                             q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = counters = None
+    if plan.splits > 1:
+        scratch = SCRATCH.get(q.device, stream, n_floats, n_counters)
+        ws, counters = scratch.ws.data_ptr(), scratch.counters.data_ptr()
     lib = _build.load("paged_attention")
     status = lib.repro_paged_flash_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_map.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws,
         counters, B, h, kvh, hd, ps, mp, plan.splits, plan.span,
-        int(k_pages.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(k_pages.dtype == torch.bfloat16), stream)
     _build.check(status, "repro_paged_flash_decode")
     global LAUNCHES
     LAUNCHES += 1

@@ -95,13 +95,14 @@ def sparse24_matmul(x: torch.Tensor, values: torch.Tensor, meta: torch.Tensor,
     if M == 0 or N == 0:
         return out
     lib = _build.load("sparse24_gemm")
-    plan, scratch = gemm_plan.launch_plan(M, N, K, "sparse24", x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     status = lib.repro_sparse24_gemm(
         x.data_ptr(), values.data_ptr(), meta.data_ptr(), out.data_ptr(),
         M, N, K, _VAL_TYPES[values.dtype], _OUT_TYPES[out_dtype],
         int(_aligned(x)), int(_aligned(values, meta) and N % 16 == 0),
-        *gemm_plan.plan_args(plan, scratch),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *gemm_plan.plan_args(
+            gemm_plan.launch_plan(M, N, K, "sparse24", x.device), x.device,
+            stream), stream)
     _build.check(status, "repro_sparse24_gemm")
     global LAUNCHES
     LAUNCHES += 1
@@ -165,14 +166,15 @@ def block24_matmul(x: torch.Tensor, w_packed: torch.Tensor, kept_idx,
         return out
     kept_t = _kept_tensor(kept, x.device)
     lib = _build.load("block24_gemm")
-    plan, scratch = gemm_plan.launch_plan(M, N, K // 2, "block24", x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     status = lib.repro_block24_gemm(
         x.data_ptr(), w_packed.data_ptr(), kept_t.data_ptr(), out.data_ptr(),
         M, N, K, block, _OUT_TYPES[out_dtype],
         int(_aligned(x) and K % 8 == 0 and block % 64 == 0),
         int(_aligned(w_packed) and N % 8 == 0),
-        *gemm_plan.plan_args(plan, scratch),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *gemm_plan.plan_args(
+            gemm_plan.launch_plan(M, N, K // 2, "block24", x.device),
+            x.device, stream), stream)
     _build.check(status, "repro_block24_gemm")
     global BLOCK24_LAUNCHES
     BLOCK24_LAUNCHES += 1

@@ -2,8 +2,10 @@
 
 Twin of ``repro/models/transformer.py`` for the serving slices:
 ``init_params``, ``prefill``, ``decode_step`` (with ``_decode_attn``) and
-``init_cache``, and the paged twins ``paged_decode_step`` (with
-``_paged_decode_attn``) and ``init_paged_cache``. Where the reference
+``init_cache``, the paged twins ``paged_decode_step`` (with
+``_paged_decode_attn``) and ``init_paged_cache``, and the speculative
+verify ``multi_decode_step`` / ``paged_multi_decode_step`` with the
+rollback of rejected writes (``_rollback_caches``). Where the reference
 scans over parameters stacked on a leading layer axis, the port keeps a
 Python list with one dict per layer and loops over it (PyTorch runs
 eagerly; there is no trace to keep small).
@@ -155,17 +157,42 @@ def _decode_attend(q, kc, vc, posc, posb: torch.Tensor, cfg: ArchConfig,
     return o.reshape(b, 1, h * hd).to(out_dtype)
 
 
-def _decode_attn(x, p, cache, posb: torch.Tensor, cfg: ArchConfig,
-                 rt: RuntimeCfg):
+def _dense_rows(caches: Caches, posb: torch.Tensor):
+    """Where a dense decode step writes, the same in every layer: each
+    slot's row ``posb`` in the flattened (B * max_len) rows, clamped to the
+    slot's last row, and whether the write is kept (``posb < max_len``).
+    A write at or past the cache's end is dropped, as the reference's
+    ``.at[bidx, slot].set`` drops it (a speculative verify probes up to k-1
+    positions past an almost-full slot). Computed once per step."""
+    b, smax = caches[0]["k"].shape[:2]
+    rows = torch.arange(0, b * smax, smax, device=posb.device) \
+        + posb.clamp(max=smax - 1)
+    return rows, posb < smax
+
+
+def _dense_write(cache, k: torch.Tensor, v: torch.Tensor,
+                 posb: torch.Tensor, rows: torch.Tensor,
+                 keep: torch.Tensor) -> None:
+    """Write each slot's new K/V (B, kvh, hd) and position at its row
+    (:func:`_dense_rows`) in place. A dropped write puts the clamped row's
+    old value back: a device select, no host sync."""
+    b, smax = cache["k"].shape[:2]
+    for key, new in (("k", k), ("v", v), ("pos", posb)):
+        flat = cache[key].view((b * smax,) + cache[key].shape[2:])
+        old = flat.index_select(0, rows)
+        mask = keep.view((b,) + (1,) * (old.dim() - 1))
+        flat.index_copy_(0, rows, torch.where(mask, new.to(flat.dtype), old))
+
+
+def _decode_attn(x, p, cache, posb: torch.Tensor, rows: torch.Tensor,
+                 keep: torch.Tensor, cfg: ArchConfig, rt: RuntimeCfg):
     """One-token attention over the dense cache, each slot at its own
-    position ``posb`` (B,). The cache is updated in place."""
+    position ``posb`` (B,), writing where :func:`_dense_rows` says. The
+    cache is updated in place."""
     q, k, v = _decode_qkv(x, p, posb, cfg, rt)
-    kc, vc, posc = cache["k"], cache["v"], cache["pos"]
-    bidx = torch.arange(x.shape[0], device=x.device)
-    kc[bidx, posb] = k[:, 0].to(kc.dtype)
-    vc[bidx, posb] = v[:, 0].to(vc.dtype)
-    posc[bidx, posb] = posb.to(posc.dtype)
-    o = _decode_attend(q, kc, vc, posc, posb, cfg, x.dtype)
+    _dense_write(cache, k[:, 0], v[:, 0], posb, rows, keep)
+    o = _decode_attend(q, cache["k"], cache["v"], cache["pos"], posb, cfg,
+                       x.dtype)
     return dense(o, p["w_o"], cfg, rt, "o")
 
 
@@ -220,14 +247,17 @@ def _paged_decode_attn(x, p, cache, posb: torch.Tensor,
 
 
 def _decode(params: Params, tokens: torch.Tensor, caches: Caches, pos,
-            cfg: ArchConfig, rt: RuntimeCfg, attn):
+            cfg: ArchConfig, rt: RuntimeCfg, make_attn):
+    """The decode stack; ``make_attn(posb)`` gives the step's attention
+    ``attn(h, p, cache)`` (per-step work done once, before the layers)."""
     b = tokens.shape[0]
     posb = torch.as_tensor(pos, device=tokens.device).to(torch.long)
     posb = posb.expand(b) if posb.dim() == 0 else posb
+    attn = make_attn(posb)
     x = embed_tokens(tokens, params["embed"]).to(rt.act_dtype)
     for p, cache in zip(params["layers"], caches):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        x = x + attn(h, p["attn"], cache, posb)
+        x = x + attn(h, p["attn"], cache)
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         x = x + swiglu_mlp(h, p["mlp"], cfg, rt)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -239,11 +269,14 @@ def _decode(params: Params, tokens: torch.Tensor, caches: Caches, pos,
 def decode_step(params: Params, tokens: torch.Tensor, caches: Caches, pos,
                 cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT):
     """One decoding step. tokens (B, 1); ``pos`` a scalar (lockstep) or a
-    (B,) vector (continuous batching). Every position must be below the
-    cache length. Returns (logits (B, Vp) f32, caches updated in place)."""
-    return _decode(params, tokens, caches, pos, cfg, rt,
-                   lambda h, p, cache, posb: _decode_attn(h, p, cache, posb,
-                                                          cfg, rt))
+    (B,) vector (continuous batching). A slot at or past the cache length
+    writes nothing (its row attends to the cache as it stands), as in the
+    reference. Returns (logits (B, Vp) f32, caches updated in place)."""
+    def make_attn(posb):
+        rows, keep = _dense_rows(caches, posb)
+        return lambda h, p, cache: _decode_attn(h, p, cache, posb, rows,
+                                                keep, cfg, rt)
+    return _decode(params, tokens, caches, pos, cfg, rt, make_attn)
 
 
 def paged_decode_step(params: Params, tokens: torch.Tensor, caches: Caches,
@@ -255,8 +288,132 @@ def paged_decode_step(params: Params, tokens: torch.Tensor, caches: Caches,
     (logits (B, Vp) f32, caches updated in place)."""
     page_map = page_map.to(device=tokens.device, dtype=torch.int32)
     return _decode(params, tokens, caches, pos, cfg, rt,
-                   lambda h, p, cache, posb: _paged_decode_attn(
+                   lambda posb: lambda h, p, cache: _paged_decode_attn(
                        h, p, cache, posb, page_map, cfg, rt))
+
+
+# ---------------------------------------------------------------------------
+# Speculative multi-token verify (core/speculative.py)
+# ---------------------------------------------------------------------------
+
+def _rollback_caches(caches: Caches, n_acc: torch.Tensor, posb: torch.Tensor,
+                     k: int, page_map: Optional[torch.Tensor] = None) -> None:
+    """Scrub the rejected writes of a k-step verify, in place: every row
+    above ``posb + n_acc`` goes back to the init values (pos -1, k/v 0),
+    which is what an unwritten row holds, so scrubbing a row nobody wrote
+    changes nothing. Row ``posb + j`` holds step ``j``'s write only, so
+    the rows kept are the accepted steps' own.
+
+    The reference keeps the last of its per-step snapshots and scrubs it
+    the same way; only its append leaves (the attention K/V/pos that
+    ``check_supported`` admits) are needed here. The state-leaf snapshots
+    come with the block kinds that have state.
+
+    * Dense ``(B, max_len, ...)``: a mask over the rows (row index ==
+      position).
+    * Pooled ``(pages + 1, page_size, ...)``: each rejected step's (page,
+      offset) row is scattered to the init values; accepted steps and
+      unmapped or out-of-range positions go to the trash page (several
+      writes of one constant to it are harmless).
+    """
+    if page_map is None:
+        smax = caches[0]["k"].shape[1]
+        rows = torch.arange(smax, device=posb.device)
+        scrub = rows[None, :] > (posb + n_acc)[:, None]          # (B, smax)
+        for c in caches:
+            c["pos"].masked_fill_(scrub, -1)
+            c["k"].masked_fill_(scrub[:, :, None, None], 0)
+            c["v"].masked_fill_(scrub[:, :, None, None], 0)
+        return
+    pool = caches[0]["k"]
+    ps, trash = pool.shape[1], pool.shape[0] - 1
+    mp = page_map.shape[1]
+    j = torch.arange(1, k, device=posb.device)
+    pj = posb[:, None] + j[None, :]                              # (B, k-1)
+    lpage = torch.clamp(pj // ps, 0, mp - 1)
+    phys = torch.gather(page_map.long(), 1, lpage)
+    phys = torch.where((phys >= 0) & (pj < mp * ps) & (j[None, :]
+                                                       > n_acc[:, None]),
+                       phys, torch.full_like(phys, trash)).flatten()
+    off = (pj % ps).flatten()
+    for c in caches:
+        c["pos"][phys, off] = -1
+        c["k"][phys, off] = 0
+        c["v"][phys, off] = 0
+
+
+def verify_decode(params: Params, tokens_seq: torch.Tensor, caches: Caches,
+                  pos, active, cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT,
+                  page_map: Optional[torch.Tensor] = None):
+    """The k-step verify behind :func:`multi_decode_step` (and, with
+    ``page_map``, :func:`paged_multi_decode_step`). Step ``j`` runs the
+    plain decode step at ``pos + j`` on the ``B = slots`` rows, one step
+    after another as in the reference: the same GEMM shapes and plans as
+    plain decode, so each committed row has plain decode's bits. Returns
+    ``(next_tokens (B, 1), greedy (B, k), n_acc (B,), caches, logits (B,
+    k, Vp))``; the caches are rolled back in place
+    (:func:`_rollback_caches`)."""
+    b, k = tokens_seq.shape
+    dev = tokens_seq.device
+    posb = torch.as_tensor(pos, device=dev).to(torch.long)
+    posb = posb.expand(b) if posb.dim() == 0 else posb
+    greedy, logits = [], []
+    for j in range(k):
+        tok = tokens_seq[:, j:j + 1].to(torch.int32)
+        if page_map is None:
+            lg, caches = decode_step(params, tok, caches, posb + j, cfg, rt)
+        else:
+            lg, caches = paged_decode_step(params, tok, caches, posb + j,
+                                           page_map, cfg, rt)
+        greedy.append(torch.argmax(lg, dim=-1).to(torch.int32))
+        logits.append(lg)
+    g = torch.stack(greedy, dim=1)                               # (B, k)
+    logits = torch.stack(logits, dim=1)
+    if k == 1:
+        return g[:, 0:1], g, torch.zeros((b,), dtype=torch.int32,
+                                          device=dev), caches, logits
+    match = tokens_seq[:, 1:].to(torch.int32) == g[:, :-1]
+    n_acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+    # idle slots behave as in plain decode, one write at their parked
+    # position: their drafts are never accepted
+    active = torch.as_tensor(active, device=dev).to(torch.bool)
+    n_acc = torch.where(active, n_acc, torch.zeros_like(n_acc)).to(
+        torch.int32)
+    next_tok = torch.gather(g, 1, n_acc[:, None].long())
+    page_map = None if page_map is None else page_map.to(device=dev)
+    _rollback_caches(caches, n_acc, posb, k, page_map)
+    return next_tok, g, n_acc, caches, logits
+
+
+def multi_decode_step(params: Params, tokens_seq: torch.Tensor,
+                      caches: Caches, pos, active, cfg: ArchConfig,
+                      rt: RuntimeCfg = DEFAULT_RT):
+    """Score k candidate tokens (speculative verify).
+
+    ``tokens_seq`` (B, k) holds each slot's next input token and k-1
+    drafts; ``pos`` (B,) each slot's decode position; ``active`` (B,) bool
+    marks occupied slots. Step ``j`` is plain ``decode_step`` at ``pos +
+    j``, so its argmax ``greedy[:, j]`` is what plain greedy decode emits
+    after committing the first ``j`` candidates; ``n_acc`` is the longest
+    prefix of drafts matching them, and the committed tokens
+    ``greedy[:, :n_acc + 1]`` are plain greedy decode's.
+
+    Returns ``(next_tokens (B, 1), greedy (B, k), n_acc (B,), caches)``,
+    the caches updated in place with the rejected writes rolled back."""
+    return verify_decode(params, tokens_seq, caches, pos, active, cfg,
+                         rt)[:4]
+
+
+def paged_multi_decode_step(params: Params, tokens_seq: torch.Tensor,
+                            caches: Caches, pos, active,
+                            page_map: torch.Tensor, cfg: ArchConfig,
+                            rt: RuntimeCfg = DEFAULT_RT):
+    """:func:`multi_decode_step` over a paged cache: the rejected pool
+    writes are scrubbed before the host sees ``n_acc``, so the allocator
+    can release over-grown pages afterwards (``PageAllocator.trim_slot``)
+    without touching the card."""
+    return verify_decode(params, tokens_seq, caches, pos, active, cfg, rt,
+                         page_map=page_map)[:4]
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

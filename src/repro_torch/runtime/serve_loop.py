@@ -22,17 +22,27 @@ Under a sparse24 policy the session prunes and packs the eligible weights
 once, at construction, after moving them to its device
 (``execution.pack_model_params``), so every step streams packed bytes.
 
+With ``speculative=`` (a :class:`~repro_torch.core.speculative.
+SpecDecodeSpec`, a k, or a dict) each decode step drafts ``k - 1`` tokens
+under the draft policy and verifies them under the session's: the session
+commits the accepted prefix and the verify's own token, exactly the plain
+greedy stream, finishing mid-commit where plain decode would stop. A paged
+session grows each slot for the ``k`` candidate positions, falls back to
+plain decode for the step when the pool cannot cover the whole batch, and
+trims the pages the rejected writes grew into. ``k = 1`` is the plain path.
+
 Where the reference donates the cache to its jitted helpers, the port
 updates the cache tensors in place. Not ported yet: sampling
 (``temperature > 0``; the port serves greedy, the only mode whose tokens
-can be held against the reference), speculative decoding, the ``auto``
-policy resolver, lanes and telemetry; ``decode_once`` is synchronous.
+can be held against the reference), the ``auto`` policy resolver, lanes
+(the reference overlaps draft and verify on them) and telemetry;
+``decode_once`` is synchronous.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +50,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import execution as ex
 from repro_torch.core import paging
+from repro_torch.core import speculative as spv
 from repro_torch.kernels import paged_attention  # noqa: F401 (hopper_paged)
 from repro_torch.models.layers import DEFAULT_RT, RuntimeCfg
 from repro_torch.models.transformer import (
@@ -111,6 +122,9 @@ class Request:
     max_new: int
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # the tenant a request belongs to: the speculative totals are kept by
+    # it ("" when None)
+    tenant: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -232,8 +246,8 @@ class ServeSession:
 
     ``submit``/``step``/``run`` drive a single FIFO queue; the slot-level
     API is ``can_admit(req)`` → ``admit(req)`` → ``decode_once()``.
-    ``last_logits`` holds the logits of the latest prefill (1, Vp) or
-    decode step (slots, Vp).
+    ``last_logits`` holds the logits of the latest prefill (1, Vp), decode
+    step (slots, Vp) or speculative verify (slots, k, Vp).
     """
 
     def __init__(self, params, cfg: ArchConfig, *, batch_slots: int,
@@ -242,13 +256,17 @@ class ServeSession:
                  policy=None, verbose_policy: bool = False,
                  paged: bool = False, page_size: int = 16,
                  pages: Optional[int] = None, speculative=None, device=None):
+        # verify-by-argmax has no exact acceptance rule for sampled decode
+        self.speculative = spv.SpecDecodeSpec.from_any(speculative)
+        if self.speculative is not None and temperature > 0:
+            raise ValueError(
+                "speculative decoding is greedy-only (temperature == 0): "
+                "verify-by-argmax has no exact acceptance rule for "
+                f"sampled decode (temperature={temperature})")
         if temperature > 0:
             raise NotImplementedError(
                 "sampled decode (temperature > 0) is not ported; the port "
                 "serves greedy")
-        if speculative is not None:
-            raise NotImplementedError(
-                "speculative decoding is ported in a later slice")
         if isinstance(policy, str):
             raise NotImplementedError(
                 f"policy {policy!r}: the policy resolver is ported in a "
@@ -259,7 +277,7 @@ class ServeSession:
             if verbose_policy:
                 print(f"[serve] policy: {policy.describe()}")
         self.policy = policy
-        self.params = _to_device(params, self.device)
+        self.params = raw = _to_device(params, self.device)
         if policy is not None and policy.sparsity == "sparse24":
             self.params = ex.pack_model_params(self.params)
         self.cfg = cfg
@@ -300,6 +318,28 @@ class ServeSession:
         self.queue: List[Request] = []
         self.completed: List[Request] = []
         self.last_logits: Optional[torch.Tensor] = None
+        # -- speculative decode state
+        self._spec_fns: Dict[int, Tuple[Callable, Callable]] = {}
+        self._spec_deltas: List[Tuple[str, int, int]] = []
+        self.spec_totals: Dict[str, Dict[str, int]] = {}
+        self.adaptive_k: Optional[spv.AdaptiveK] = None
+        self._draft_params = None
+        if self.speculative is not None:
+            self._draft_params = self._draft_weights(raw)
+            if self.speculative.adaptive:
+                self.adaptive_k = spv.AdaptiveK(self.speculative)
+
+    def _draft_weights(self, raw):
+        """The weights the draft chain reads: packed 2:4 under a sparse24
+        draft policy (the session's own packed tree when its policy is
+        sparse24 too, else a copy packed once, here), else the unpacked
+        tree on the device."""
+        if self.speculative.resolved().sparsity != "sparse24":
+            return raw
+        if isinstance(self.policy, ex.ExecutionPolicy) \
+                and self.policy.sparsity == "sparse24":
+            return self.params
+        return ex.pack_model_params(raw)
 
     # -- slot-level API ------------------------------------------------------
     def _policy_scope(self):
@@ -470,16 +510,31 @@ class ServeSession:
         self.tokens[slot, 0] = export.token
         return slot
 
-    def _grow_pages(self) -> List[Request]:
+    def _spec_pages_short(self, k: int) -> bool:
+        """Whether the pool lacks the pages a k-deep step needs for the
+        whole batch (each active slot up to ``min(pos + k, max_len)``
+        positions)."""
+        need = 0
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            tgt = min(int(self.slot_pos[i]) + k, self.max_len)
+            need += max(0, self.pager.pages_for(tgt)
+                        - len(self.pager.slot_pages(i)))
+        return need > self.pager.free_pages
+
+    def _grow_pages(self, k: int = 1) -> List[Request]:
         """Lazy page append before a paged decode step: every active slot
-        gets a page for the position this step writes. A slot the pool
-        cannot grow finishes truncated (refused, never crashed). Returns
-        the requests finished so."""
+        gets pages for the positions this step may write (``k`` candidates
+        on a speculative step, positions past ``max_len`` going to the
+        trash page). A slot the pool cannot grow finishes truncated
+        (refused, never crashed). Returns the requests finished so."""
         done = []
         for i, req in enumerate(self.slots):
             if req is None:
                 continue
-            need = int(self.slot_pos[i]) + 1
+            need = min(int(self.slot_pos[i]) + k, self.max_len) if k > 1 \
+                else int(self.slot_pos[i]) + 1
             if self.pager.pages_for(need) > len(self.pager.slot_pages(i)):
                 try:
                     self.pager.extend_slot(i, need)
@@ -491,16 +546,113 @@ class ServeSession:
                     done.append(req)
         return done
 
+    # -- speculative decode ---------------------------------------------------
+    def _next_spec_k(self) -> int:
+        """Depth of the next decode step: the spec's k, or the adaptive
+        controller's (1 = plain decode)."""
+        if self.speculative is None:
+            return 1
+        if self.adaptive_k is not None:
+            return max(1, min(self.adaptive_k.k, self.speculative.k))
+        return self.speculative.k
+
+    def _spec_fns_for(self, k: int) -> Tuple[Callable, Callable]:
+        """The (draft, verify) pair for depth ``k``; the verify is shared
+        by every k (it takes k from its input's width)."""
+        fns = self._spec_fns.get(k)
+        if fns is None:
+            verify = next(iter(self._spec_fns.values()))[1] \
+                if self._spec_fns else spv.make_verify_step(
+                    self.cfg, self.rt, paged=self.paged)
+            draft = spv.make_draft_step(self.cfg, self.rt,
+                                        self.speculative.resolved(), k - 1,
+                                        paged=self.paged)
+            fns = self._spec_fns[k] = (draft, verify)
+        return fns
+
+    def drain_spec_deltas(self) -> List[Tuple[str, int, int]]:
+        """The per-slot ``(tenant, drafted, accepted)`` samples since the
+        last drain."""
+        out, self._spec_deltas = self._spec_deltas, []
+        return out
+
+    def _spec_step(self, k: int, posv: torch.Tensor) -> List[Request]:
+        """A k-deep speculative step: the draft chain, then the verify, on
+        the session's stream; then the commit of each slot's accepted
+        prefix and the verify's token. The caches are rolled back in place
+        before the host reads the accepted counts."""
+        active = torch.as_tensor([s is not None for s in self.slots],
+                                 device=self.device)
+        draft, verify = self._spec_fns_for(k)
+        paged = (self._page_map,) if self.paged else ()
+        with self._policy_scope():
+            seq = draft(self._draft_params, self.tokens, self.caches, posv,
+                        *paged)
+            nxt, greedy, n_acc, self.caches, logits = verify(
+                self.params, seq, self.caches, posv, active, *paged)
+        self.last_logits = logits
+        host = torch.cat([greedy, n_acc[:, None]], dim=1).cpu().numpy()
+        self.tokens = nxt
+        done, trimmed = [], False
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            acc = int(host[i, k])
+            finished = False
+            committed = 0
+            # the accepted drafts and the verify's token, in order; a
+            # finish mid-commit stops exactly where plain decode would
+            for t in range(acc + 1):
+                tok = int(host[i, t])
+                self.slot_pos[i] += 1
+                req.out.append(tok)
+                committed += 1
+                if self._maybe_finish(i, tok):
+                    done.append(req)
+                    finished = True
+                    break
+            tenant = req.tenant or ""
+            self._spec_deltas.append((tenant, k - 1, acc))
+            tot = self.spec_totals.setdefault(
+                tenant, {"steps": 0, "drafted": 0, "accepted": 0,
+                         "committed": 0})
+            tot["steps"] += 1
+            tot["drafted"] += k - 1
+            tot["accepted"] += acc
+            tot["committed"] += committed
+            if self.adaptive_k is not None:
+                self.adaptive_k.observe(tenant, k - 1, acc)
+            if not finished and self.paged:
+                # release the candidate pages the rejected writes grew
+                # into: the verify scrubbed them before n_acc was read
+                if self.pager.trim_slot(i, int(self.slot_pos[i]) + 1):
+                    trimmed = True
+                self.pager.note_tokens(i, int(self.slot_pos[i]) + 1)
+        if trimmed:
+            self._sync_page_map()
+        if self.adaptive_k is not None:
+            self.adaptive_k.on_step()
+        return done
+
     def decode_once(self) -> List[Request]:
-        """One decode step over every slot; returns the requests that
-        completed this step (paged: those the pool truncated first)."""
+        """One decode step over every slot (a speculative one when the
+        session has a spec and its depth is above 1); returns the requests
+        that completed this step (paged: those the pool truncated
+        first)."""
         if self.n_active == 0:
             return []
-        done = self._grow_pages() if self.paged else []
+        k = self._next_spec_k()
+        done = []
+        if self.paged:
+            if k > 1 and self._spec_pages_short(k):
+                k = 1      # the pool cannot cover the batch: plain decode
+            done = self._grow_pages(k)
         if self.n_active == 0:
             return done
         posv = torch.as_tensor(self.slot_pos.astype(np.int64),
                                device=self.device)
+        if k > 1:
+            return done + self._spec_step(k, posv)
         with self._policy_scope():
             if self.paged:
                 nxt, logits, self.caches = self.step_fn(
@@ -524,6 +676,8 @@ class ServeSession:
                 # utilization accounting: positions written so far plus
                 # the pending next write
                 self.pager.note_tokens(i, int(self.slot_pos[i]) + 1)
+        if self.adaptive_k is not None:
+            self.adaptive_k.on_step()
         return done
 
     def _maybe_finish(self, slot: int, tok: int) -> bool:

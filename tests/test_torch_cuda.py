@@ -147,6 +147,38 @@ def test_cuda_block24_kernel_matches_plain(m, k, n, block):
         rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,tile,splits", [(4, gp.SMALL, 1),
+                                           (128, gp.DEEP, 1),
+                                           (77, gp.DEEP, 1)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_block24_kernel_at_its_own_schedule(m, tile, splits, out_dtype):
+    """Kernel E at llama3-8b's gate/up shape (K 4096, N 14336, blocks of
+    128) on its own plan: unsplit Small at decode, the deep ring at
+    prefill. Within 1e-4 (f32 out) or 8e-3 relative (bf16 out: one more
+    rounding either may take) of its plain version, and bit-equal to a
+    repeat."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((m, 4096), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((4096, 14336), generator=gen, device="cuda")
+         * 4096 ** -0.5).bfloat16()
+    wp, keep = tsp.prune_block24(w, 128)
+    kept = tuple(int(i) for i in torch.nonzero(keep).flatten())
+    packed = torch.cat([wp[i * 128:(i + 1) * 128] for i in kept])
+    plan = gp.launch_plan(m, 14336, 2048, "block24", x.device)[0]
+    assert (plan.tile, plan.splits) == (tile, splits)
+    got = sm.block24_matmul(x, packed, kept, 128, out_dtype)
+    want = sm.block24_matmul_plain(x, packed, kept, 128, out_dtype)
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 8e-3 * want.float().abs().max()
+    assert _same_bits(got, sm.block24_matmul(x, packed, kept, 128,
+                                             out_dtype))
+
+
 def _plain_and_kernel(kernel, m, k, n, gen):
     """(kernel call, plan) of kernel A, D or E on seeded inputs."""
     x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
@@ -271,3 +303,41 @@ def test_cuda_paged_decode_kernel_matches_plain(dtype, hd, ps, lengths,
     empty = torch.tensor([n == 0 for n in lengths], device="cuda")
     assert (got[empty] == 0).all()
     assert _same_bits(got, pa.paged_flash_decode(q, kp, vp, pm, ln))
+
+
+def _split_call(kernel, seed):
+    """A split launch of kernel A (decode gate/up), D (its decode gate/up)
+    or C (the serving shape) on seeded inputs, as a closure."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if kernel == "C":
+        q, kp, vp, pm = _paged_inputs(4, 32, 8, 128, 16, 32, torch.bfloat16,
+                                      seed)
+        ln = torch.tensor((129, 78, 1, 0), dtype=torch.int32, device="cuda")
+        assert pa.launch_plan(4, 32, 8, 128, 512, q.device)[0].splits > 1
+        return lambda: pa.paged_flash_decode(q, kp, vp, pm, ln)
+    call, plan = _plain_and_kernel(kernel, 4, 4096, 14336, gen)
+    assert plan.splits > 1
+    return call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["A", "D", "C"])
+def test_cuda_split_launches_on_two_streams_keep_their_bits(kernel):
+    """Two split launches in flight at once on two streams, several times
+    over: each stream has its own workspace and counters, so every output
+    is bit-equal to the same call made alone."""
+    _need_cuda()
+    calls = [_split_call(kernel, seed) for seed in (11, 12)]
+    alone = [call() for call in calls]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(8):
+        for i, (s, call) in enumerate(zip(streams, calls)):
+            with torch.cuda.stream(s):
+                outs[i].append(call())
+    torch.cuda.synchronize()
+    for want, got in zip(alone, outs):
+        assert all(_same_bits(g, want) for g in got)

@@ -33,7 +33,7 @@ def test_every_output_tile_appears_once_and_splits_partition_k(M, K, N,
                                                                kind):
     p = gp.plan(M, N, K, kind, H100_SMS)
     assert (p.bm, p.bn, p.bk) == gp.TILES[p.tile]
-    assert p.tile == (gp.SMALL if M <= 16 else gp.WIDE)
+    assert p.tile == (gp.SMALL if M <= 16 else gp.PREFILL_TILE[kind])
     cover = np.zeros((M, N), dtype=np.int64)
     for mt in range(p.m_tiles):
         for nt in range(p.n_tiles):
@@ -114,3 +114,33 @@ def test_launch_plan_refuses_the_cpu():
     """The scratch and SM count belong to a CUDA device."""
     with pytest.raises((AssertionError, RuntimeError, ValueError)):
         gp.launch_plan(4, 64, 64, "gemm", torch.device("cpu"))
+
+
+@pytest.mark.parametrize("M,tile,splits,blocks", [
+    (4, gp.SMALL, 1, 224), (128, gp.DEEP, 1, 112), (77, gp.DEEP, 1, 112)])
+def test_kernel_e_has_its_own_schedule(M, tile, splits, blocks):
+    """Kernel E at llama3-8b's gate/up shape (K/2 = 2048 packed rows):
+    decode unsplit on the Small tile, prefill on the deep-ring tile; A and D
+    keep theirs at the same shapes."""
+    p = gp.plan(M, 14336, 2048, "block24", H100_SMS)
+    assert (p.tile, p.splits, p.blocks) == (tile, splits, blocks)
+    for kind in ("gemm", "sparse24"):
+        assert gp.plan(M, 14336, 2048, kind, H100_SMS).tile in (gp.SMALL,
+                                                                gp.WIDE)
+
+
+def test_split_scratch_belongs_to_the_stream():
+    """One set per (device, stream): the same stream gets its set back,
+    grown to the largest request; another stream, or the same handle on
+    another device, gets a set of its own."""
+    table = gp.StreamScratch()
+    cpu = torch.device("cpu")
+    a = table.get(cpu, 7, 100, 4)
+    assert table.get(cpu, 7, 10, 2) is a
+    assert a.ws.numel() == 100 and a.counters.numel() == 4
+    assert (a.counters == 0).all()
+    grown = table.get(cpu, 7, 300, 8)
+    assert grown is a and a.ws.numel() == 300 and a.counters.numel() == 8
+    b = table.get(cpu, 8, 100, 4)
+    assert b is not a and b.ws.data_ptr() != a.ws.data_ptr()
+    assert table.get(torch.device("meta"), 7, 1, 1) is not a

@@ -120,10 +120,10 @@ def test_session_needs_a_device_on_a_cpu_only_machine():
 
 
 def test_unported_session_modes_raise():
-    """Sampling, speculation and the policy resolver are not ported (the
-    paged cache and the slot handoff are: test_torch_serve_paged.py)."""
-    for kw in ({"speculative": 2}, {"policy": "auto"},
-               {"temperature": 0.7}):
+    """Sampling and the policy resolver are not ported (the paged cache and
+    the slot handoff are: test_torch_serve_paged.py; speculation is:
+    test_torch_speculative.py)."""
+    for kw in ({"policy": "auto"}, {"temperature": 0.7}):
         with pytest.raises(NotImplementedError):
             tsl.ServeSession({}, CFG, batch_slots=1, max_len=8,
                              device="cpu", **kw)
@@ -134,7 +134,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.launch.serve, repro_torch.kernels.ops, "
             "repro_torch.bridge, repro_torch.core.sparsity, "
             "repro_torch.kernels.sparse24_matmul, repro_torch.core.paging, "
-            "repro_torch.kernels.paged_attention\n"
+            "repro_torch.kernels.paged_attention, "
+            "repro_torch.core.speculative\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")

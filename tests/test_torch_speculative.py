@@ -1,0 +1,453 @@
+"""Speculative decoding in the port against plain greedy decode and against
+the JAX package's speculative session, on the reduced llama3-8b.
+
+The contract is the reference's: a speculative session commits exactly the
+plain greedy stream (dense and paged, fp8 and fp8:sparse24 drafts, any k,
+a slot that ends mid-commit at ``max_len`` included), and a rejected draft
+leaves no trace in the cache. The port's draft writes the session's cache
+in place where the reference's writes are dropped, so the cache tests here
+run the draft for real before the verify and hold the result to plain
+decode's cache bit for bit.
+
+Both packages run from the same JAX init (bridged bit for bit). In f32 the
+tokens and the acceptance totals equal JAX's exactly; in bf16 the two
+stacks round differently (test_torch_serve.py), so a token may flip only at
+a near-tie of the port's plain decode, while the port's speculative tokens
+still equal its own plain tokens exactly.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced
+from repro.core import execution as jex
+from repro.core import speculative as jspv
+from repro.models import init_params
+from repro.models.layers import RuntimeCfg as JRt
+from repro.runtime import serve_loop as jsl
+from repro_torch import bridge
+from repro_torch.core import execution as tex
+from repro_torch.core import speculative as tspv
+from repro_torch.models import transformer as tt
+from repro_torch.models.layers import RuntimeCfg as TRt
+from repro_torch.runtime import serve_loop as tsl
+from test_torch_serve import NEAR_TIE, _margin
+
+CFG = get_reduced("llama3-8b")
+MAX_LEN, PAGE, SLOTS = 24, 8, 2
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+_PARAMS = {}
+
+
+def _params(dtype):
+    if dtype not in _PARAMS:
+        jdt, _ = DTYPES[dtype]
+        params = init_params(jax.random.PRNGKey(0), CFG, dtype=jdt)
+        _PARAMS[dtype] = (params, bridge.params_from_numpy(
+            jax.tree.map(np.asarray, params), CFG))
+    return _PARAMS[dtype]
+
+
+def _session(dtype="f32", *, paged=False, speculative=None, slots=SLOTS,
+             **kw):
+    _, tdt = DTYPES[dtype]
+    if paged:
+        kw.setdefault("page_size", PAGE)
+    return tsl.ServeSession(
+        _params(dtype)[1], CFG, batch_slots=slots, max_len=MAX_LEN,
+        rt=TRt(act_dtype=tdt), policy=tex.parse_policy("bf16:dense:torch"),
+        paged=paged, speculative=speculative, device="cpu", **kw)
+
+
+def _jax_session(dtype="f32", *, paged=False, speculative=None):
+    jdt, _ = DTYPES[dtype]
+    kw = dict(paged=True, page_size=PAGE) if paged else {}
+    return jsl.ServeSession(
+        _params(dtype)[0], CFG, batch_slots=SLOTS, max_len=MAX_LEN,
+        rt=JRt(act_dtype=jdt, param_dtype=jdt),
+        policy=jex.parse_policy("bf16:dense:jnp"), speculative=speculative,
+        **kw)
+
+
+def _prompts():
+    """Two accept-friendly prompts (a repeated pair the draft predicts)
+    and two random ones, so acceptance differs between slots within one
+    verify step."""
+    rng = np.random.default_rng(3)
+    return [np.array([5 + 2 * i, 9 + 2 * i] * 3, np.int32) for i in range(2)] \
+        + [rng.integers(0, CFG.vocab_size, 6).astype(np.int32)
+           for _ in range(2)]
+
+
+# request 1 ends on max_new (mid-commit for k > 1 when its drafts are
+# accepted); the others run into max_len (18 decode positions after a
+# 6-token prompt), where a k-deep commit is cut short too
+MAX_NEW = (32, 11, 32, 32)
+
+
+def _run(sess, module, tenants=("a", "b", "a", "b")):
+    for uid, (p, n) in enumerate(zip(_prompts(), MAX_NEW)):
+        sess.submit(module.Request(uid=uid, prompt=p.copy(), max_new=n,
+                                   tenant=tenants[uid]))
+    sess.run()
+    return {r.uid: list(r.out) for r in sess.completed}
+
+
+# ---------------------------------------------------------------------------
+# The exactness contract
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("draft", ["fp8", "fp8:sparse24"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_committed_tokens_equal_plain_decode_and_jax(paged, draft, k):
+    """f32: the port's speculative tokens equal its plain greedy tokens and
+    JAX's speculative session's, and so do the acceptance totals (per
+    tenant: steps, drafted, accepted, committed)."""
+    spec = {"k": k, "draft_policy": draft}
+    plain = _run(_session(paged=paged), tsl)
+    sess = _session(paged=paged, speculative=spec)
+    got = _run(sess, tsl)
+    jsess = _jax_session(paged=paged, speculative=spec)
+    want = _run(jsess, jsl)
+    assert got == plain == want
+    assert [len(got[u]) for u in range(4)] == [19, 11, 19, 19]
+    assert sess.spec_totals == jsess.spec_totals
+    if k == 1:
+        assert sess.spec_totals == {} and sess._spec_fns == {}
+    else:
+        assert sum(t["committed"] for t in sess.spec_totals.values()) \
+            == sum(len(o) - 1 for o in got.values())
+
+
+def test_bf16_tokens_equal_plain_and_jax_up_to_a_near_tie():
+    """bf16: speculative == plain exactly in the port; against JAX's
+    speculative session a request may flip only where the port's plain
+    decode had a top-2 margin under the near-tie bound."""
+    spec = {"k": 4, "draft_policy": "fp8"}
+    plain = _session("bf16")
+    margins = {}
+    for uid, (p, n) in enumerate(zip(_prompts(), MAX_NEW)):
+        plain.submit(tsl.Request(uid=uid, prompt=p.copy(), max_new=n))
+    while plain.queue or plain.n_active:
+        while plain.queue and plain.can_admit(plain.queue[0]):
+            req = plain.queue.pop(0)
+            plain.admit(req)
+            margins[(req.uid, 0)] = _margin(plain.last_logits[0])
+        active = [(i, r, len(r.out)) for i, r in enumerate(plain.slots)
+                  if r is not None]
+        plain.decode_once()
+        for i, r, n in active:
+            margins[(r.uid, n)] = _margin(plain.last_logits[i])
+    ref = {r.uid: list(r.out) for r in plain.completed}
+    got = _run(_session("bf16", speculative=spec), tsl)
+    want = _run(_jax_session("bf16", speculative=spec), jsl)
+    assert got == ref
+    for uid in want:
+        flip = next((i for i, (a, b) in enumerate(zip(got[uid], want[uid]))
+                     if a != b), None)
+        if flip is not None:
+            assert margins[(uid, flip)] < NEAR_TIE["bf16"], (uid, flip)
+
+
+def test_k1_is_the_plain_path():
+    """``k = 1`` builds no draft, records no acceptance and runs the plain
+    step: the same tokens and the same last logits as a session with no
+    spec."""
+    a, b = _session(speculative=1), _session()
+    for sess in (a, b):
+        for uid, p in enumerate(_prompts()[:2]):
+            sess.submit(tsl.Request(uid=uid, prompt=p.copy(), max_new=6))
+        sess._admit_from_queue()
+        sess.decode_once()
+    assert torch.equal(a.last_logits, b.last_logits)
+    a.run()
+    b.run()
+    assert [r.out for r in a.completed] == [r.out for r in b.completed]
+    assert a.spec_totals == {} and a._spec_fns == {}
+
+
+def test_speculation_refuses_sampled_decode():
+    with pytest.raises(ValueError):
+        _session(speculative=2, temperature=0.7)
+
+
+# ---------------------------------------------------------------------------
+# The in-place draft and the rollback
+# ---------------------------------------------------------------------------
+
+def _prefilled(paged, slots=1):
+    """A session with one request admitted in slot 0 and two plain steps
+    taken (so the rollback has history to keep); the rest idle."""
+    sess = _session(paged=paged, slots=slots)
+    prompt = np.random.default_rng(2).integers(0, CFG.vocab_size, 6)
+    sess.admit(tsl.Request(uid=0, prompt=prompt.astype(np.int32),
+                           max_new=32))
+    for _ in range(2):
+        sess.decode_once()
+    return sess
+
+
+def _clone(caches):
+    return [{key: t.clone() for key, t in c.items()} for c in caches]
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()]) \
+        if t.is_floating_point() else t
+
+
+def _caches_equal(a, b, paged):
+    """Bit-equal leaves; on a paged session the trash page is scratch."""
+    cut = slice(None, -1) if paged else slice(None)
+    return all(torch.equal(_bits(x[key][cut]), _bits(y[key][cut]))
+               for x, y in zip(a, b) for key in ("k", "v", "pos"))
+
+
+@pytest.mark.parametrize("n_acc", [0, 2])
+@pytest.mark.parametrize("paged", [False, True])
+def test_cache_after_the_draft_and_verify_equals_plain_decode(paged, n_acc):
+    """The fp8 draft writes rows pos .. pos+k-2 of the session's cache in
+    place; then a k = 4 verify whose drafts match the plain greedy tokens
+    for ``n_acc`` steps (then miss) must leave the cache bit-equal to
+    ``n_acc + 1`` plain decode steps, and commit their tokens."""
+    k = 4
+    sess = _prefilled(paged)
+    pos = torch.as_tensor(sess.slot_pos.astype(np.int64))
+    if paged:      # grown for the k candidates, as the session does
+        sess.pager.extend_slot(0, min(int(pos[0]) + k, MAX_LEN))
+        sess._sync_page_map()
+    pm = (sess._page_map,) if paged else ()
+    step = tt.paged_decode_step if paged else tt.decode_step
+    plain = _clone(sess.caches)
+    tok, greedy = sess.tokens, []
+    for j in range(n_acc + 1):
+        logits, _ = step(sess.params, tok, plain, pos + j, *pm, sess.cfg,
+                         sess.rt)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        greedy.append(int(tok[0, 0]))
+    draft = tspv.make_draft_step(sess.cfg, sess.rt, tex.parse_policy("fp8"),
+                                 k - 1, paged=paged)
+    before = _clone(sess.caches)
+    draft(sess.params, sess.tokens, sess.caches, pos, *pm)
+    assert not _caches_equal(sess.caches, before, paged)   # it wrote
+    bad = (greedy[-1] + 1) % CFG.vocab_size
+    seq = torch.tensor([[int(sess.tokens[0, 0])] + greedy[:n_acc]
+                        + [bad] * (k - 1 - n_acc)], dtype=torch.int32)
+    multi = tt.paged_multi_decode_step if paged else tt.multi_decode_step
+    nxt, g, acc, rolled = multi(sess.params, seq, sess.caches, pos,
+                                torch.ones(1, dtype=torch.bool), *pm,
+                                sess.cfg, sess.rt)
+    assert int(acc[0]) == n_acc
+    assert g[0, :n_acc + 1].tolist() == greedy
+    assert int(nxt[0, 0]) == greedy[-1]
+    assert rolled is sess.caches
+    assert _caches_equal(rolled, plain, paged)
+
+
+def test_idle_slot_is_untouched_by_the_verify():
+    """An idle slot (active False) never accepts a draft, even one that
+    matches its greedy tokens, and its cache ends as plain decode leaves
+    it: one write at its parked position."""
+    sess = _prefilled(paged=False, slots=2)
+    pos = torch.as_tensor(sess.slot_pos.astype(np.int64))
+    plain = _clone(sess.caches)
+    logits, _ = tt.decode_step(sess.params, sess.tokens, plain, pos,
+                               sess.cfg, sess.rt)
+    g0 = torch.argmax(logits, -1).to(torch.int32)
+    seq = torch.stack([sess.tokens[:, 0], g0, g0, g0], dim=1)
+    active = torch.tensor([True, False])
+    _, _, acc, rolled = tt.multi_decode_step(sess.params, seq, sess.caches,
+                                             pos, active, sess.cfg, sess.rt)
+    assert int(acc[1]) == 0
+    for r, p in zip(rolled, plain):
+        for key in ("k", "v", "pos"):
+            assert torch.equal(r[key][1], p[key][1])
+
+
+def test_paged_trim_leaves_no_stale_row():
+    """A k = 4 paged session over-grows pages for the candidates and trims
+    them after a verify that rejects into them (the 2:4 draft is rejected
+    often): once drained, the pool is scrubbed, and the
+    reused pages serve the next request with the plain tokens."""
+    sess = _session(paged=True, slots=1,
+                    speculative={"k": 4, "draft_policy": "fp8:sparse24"})
+    first, second = _prompts()[2:]
+    sess.submit(tsl.Request(uid=0, prompt=first.copy(), max_new=10))
+    sess.run()
+    assert sess.pager.trim_count > 0
+    assert sess.pager.pages_in_use == 0
+    for c in sess.caches:
+        assert (c["pos"][:-1] == -1).all()
+        assert (c["k"][:-1] == 0).all() and (c["v"][:-1] == 0).all()
+    sess.submit(tsl.Request(uid=1, prompt=second.copy(), max_new=10))
+    sess.run()
+    ref = _session(paged=True, slots=1)
+    ref.submit(tsl.Request(uid=1, prompt=second.copy(), max_new=10))
+    ref.run()
+    assert sess.completed[-1].out == ref.completed[-1].out
+
+
+def test_paged_step_falls_back_to_plain_when_the_pool_is_short():
+    """The batch-wide check: when the free pages cannot cover every slot's
+    k candidates, the step runs plain decode instead (and a slot the pool
+    cannot grow even so finishes truncated, as in plain decode). Every
+    request's tokens are a prefix of the plain stream."""
+    sess = _session(paged=True, speculative=4, pages=4)
+    depths = []
+    grow = sess._grow_pages
+    sess._grow_pages = lambda k=1: (depths.append(k), grow(k))[1]
+    got = _run(sess, tsl)
+    assert 1 in depths and 4 in depths
+    plain = _run(_session(paged=True), tsl)
+    for uid, out in got.items():
+        assert out and out == plain[uid][:len(out)]
+
+
+# ---------------------------------------------------------------------------
+# The spec surface and the depth controller, against the reference's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", [
+    "none", "int", "dict", "instance", "bool", "unknown_field", "k0",
+    "thresholds", "reprobe", "roundtrip", "draft_backend"])
+def test_spec_surface(case):
+    S = tspv.SpecDecodeSpec
+    s = S.from_any({"k": 2, "draft_policy": "fp8:sparse24"})
+    if case == "none":
+        assert S.from_any(None) is None
+    elif case == "int":
+        assert S.from_any(3).k == 3
+    elif case == "dict":
+        assert s.spec_key() == "fp8:sparse24:torch"
+    elif case == "instance":
+        assert S.from_any(s) is s
+    elif case == "bool":
+        with pytest.raises(TypeError):
+            S.from_any(True)
+    elif case == "unknown_field":
+        with pytest.raises(ValueError):
+            S.from_any({"k": 2, "nope": 1})
+    elif case == "k0":
+        with pytest.raises(ValueError):
+            S(k=0)
+    elif case == "thresholds":
+        with pytest.raises(ValueError):
+            S(grow_above=0.2, shrink_below=0.5)
+    elif case == "reprobe":
+        with pytest.raises(ValueError):
+            S(k=2, reprobe_interval=-1)
+    elif case == "roundtrip":
+        assert S.from_any(s.to_dict()) == S(k=2,
+                                            draft_policy="fp8:sparse24:torch")
+    elif case == "draft_backend":
+        # parsed with no base: "fp8" takes the port's default backend, as
+        # JAX's takes its own, whatever the session's policy
+        assert S(draft_policy="fp8").resolved().backend == "torch"
+        assert jspv.SpecDecodeSpec(draft_policy="fp8").resolved().backend \
+            == "jnp"
+        assert S(draft_policy="fp8:dense:hopper").spec_key() \
+            == "fp8:dense:hopper"
+        assert S(draft_policy="fp8:dense:pallas").spec_key() \
+            == "fp8:dense:hopper"
+
+
+def _scenario_grow_and_shrink(ak):
+    for _ in range(8):
+        ak.observe("t", 3, 0)
+        yield ak.on_step()
+    for _ in range(10):
+        ak.observe("t", 3, 3)
+        yield ak.on_step()
+    ak.observe("slow", 3, 0)
+    for _ in range(8):
+        ak.observe("t", 3, 3)
+        ak.observe("slow", 3, 0)
+        yield ak.on_step()
+    yield dict(ak.desired)
+    ak.forget("slow")
+    yield ak.k
+
+
+def _scenario_floor_sticky(ak):
+    for _ in range(8):
+        ak.observe("t", 3, 0)
+        yield ak.on_step()
+    for _ in range(40):
+        yield ak.on_step()
+    yield ak.reprobes
+
+
+def _scenario_reprobe(ak):
+    for _ in range(8):
+        ak.observe("t", 3, 0)
+        yield ak.on_step()
+    for _ in range(12):
+        yield ak.on_step()
+    for _ in range(8):
+        ak.observe("t", 3, 3)
+        yield ak.on_step()
+    for _ in range(10):
+        ak.observe("t", 3, 0)
+        yield ak.on_step()
+    for _ in range(12):
+        yield ak.on_step()
+    yield ak.reprobes
+
+
+def _scenario_reprobe_capped(ak):
+    ak.observe("t", 1, 0)
+    ak.ema["t"] = 0.0
+    for _ in range(5):
+        yield ak.on_step()
+
+
+SCENARIOS = {
+    "grow_and_shrink": (_scenario_grow_and_shrink,
+                        dict(k=4, adaptive=True, interval=2, ema_alpha=1.0)),
+    "floor_sticky": (_scenario_floor_sticky,
+                     dict(k=4, adaptive=True, interval=2, ema_alpha=1.0)),
+    "reprobe": (_scenario_reprobe,
+                dict(k=4, adaptive=True, interval=2, ema_alpha=1.0,
+                     reprobe_interval=3)),
+    "reprobe_capped": (_scenario_reprobe_capped,
+                       dict(k=1, adaptive=True, interval=1, ema_alpha=1.0,
+                            reprobe_interval=1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_adaptive_k_follows_the_reference(name):
+    """The reference's four AdaptiveK scenarios, each depth after each
+    tick equal to JAX's controller, and its end states as the reference's
+    tests pin them."""
+    run, kw = SCENARIOS[name]
+    got = list(run(tspv.AdaptiveK(tspv.SpecDecodeSpec(**kw))))
+    want = list(run(jspv.AdaptiveK(jspv.SpecDecodeSpec(**kw))))
+    assert got == want
+    if name == "grow_and_shrink":
+        assert got[7] == 1 and got[17] == 4
+        assert got[-2] == {"t": 4, "slow": 1} and got[-3] == 1
+        assert got[-1] == 4
+    elif name == "floor_sticky":
+        assert got[7] == 1 and set(got[8:-1]) == {1} and got[-1] == 0
+    elif name == "reprobe":
+        assert 2 in got[8:20] and max(got[8:20]) == 2
+        assert got[27] == 4 and got[-1] > 1
+    else:
+        assert got == [1] * 5
+
+
+def test_adaptive_session_actuates_depth():
+    sess = _session(slots=1, speculative={"k": 4, "adaptive": True})
+    assert sess.adaptive_k is not None and sess._next_spec_k() == 4
+    sess.adaptive_k.k = 1                 # the controller hit the floor
+    assert sess._next_spec_k() == 1
+    sess.submit(tsl.Request(uid=0, prompt=_prompts()[0].copy(), max_new=4))
+    sess.run()
+    assert sess.spec_totals == {}         # plain steps while floored
+    assert sess.adaptive_k.steps > 0      # ticked on the plain steps
+    assert _session(speculative=4).adaptive_k is None
