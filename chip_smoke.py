@@ -30,6 +30,20 @@ their entry points (``kernels.paged_attention.paged_decode_attention`` and
 ``sweep_paged_tilings``, ``kernels.ops.block24_matmul``) are driven at
 their phases' shapes, and C also on the paged run's live pools.
 
+Then the multi-tenant runtime on the same weights. ``[concurrency]`` runs
+the paper's Fig 4/5 on CUDA streams (``characterize_streams`` over 1, 2, 4
+and 8 lanes, serial and async, each stream running kernel A at the decode
+k/v and gate/up shapes) and profiles one async round. ``[runtime]`` serves
+three tenants through ``ServingRuntime`` with a ``bf16:dense:hopper`` and a
+``bf16:sparse24:hopper`` partition (one lane, one stream, each), lane
+overlap on (run A) and off (run B) in turns, against a plain
+``ServeSession`` of each partition's policy; then two dense partitions
+with a live ``migrate`` mid-flight (run C) against the same run without
+it, and one ``WorkloadTrace`` replayed with overlap on and off. Tokens must
+be equal across all of them, every request complete, the launches of A, B
+and D equal the counts the partitions' steps imply, and the exported
+Chrome traces validate.
+
 Every kernel is timed by its device time (torch.profiler) with its
 operands out of L2 (rotating copies where they total less than its 50 MB),
 checked against its plain version and for bit-equal repeats, and prints its
@@ -1175,10 +1189,17 @@ def serve_phase():
             results[PAGED_TAG] = serve_paged(params, cfg, requests, run,
                                              launches)
     torch.cuda.empty_cache()
-    results["bf16:sparse24:hopper"] = serve_sparse24(params, cfg, requests)
+    results["bf16:sparse24:hopper"], packed = serve_sparse24(params, cfg,
+                                                             requests)
     torch.cuda.empty_cache()
     results.update(serve_spec(params, cfg))
-    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    concurrency_phase(params, cfg)
+    results.update(runtime_phase(params, packed, cfg))
+    print(f"[runtime] the [concurrency] and [runtime] phases took "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    del params, packed
     torch.cuda.empty_cache()
     return results
 
@@ -1558,7 +1579,7 @@ def serve_sparse24(params, cfg, requests):
                 "sparse24_launches_per_step": per_step})
     res.update(profile_decode(session(packed, "hopper", True), requests(),
                               res["decode_ms_per_step"]))
-    return res
+    return res, packed
 
 
 def check_pack_on_cpu(params, packed):
@@ -1578,6 +1599,440 @@ def check_pack_on_cpu(params, packed):
           f"(CPU pack {time.perf_counter() - t0:.1f}s)", flush=True)
     if not same:
         fail("the packed weight differs between the card and the CPU")
+
+
+# ---------------------------------------------------------------------------
+# Lanes on CUDA streams: the paper's Fig 4/5, and the multi-tenant runtime
+# ---------------------------------------------------------------------------
+
+def device_spans(prof):
+    """(start µs, end µs, stream) of every kernel in a torch.profiler
+    trace."""
+    return [(e.time_range.start, e.time_range.end,
+             getattr(e, "device_resource_id", getattr(e, "thread", 0)))
+            for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
+def busy_us(spans) -> float:
+    """Union of the kernel intervals: time the card ran anything."""
+    busy, end = 0.0, None
+    for a, b, _ in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy
+
+
+def multi_stream_us(spans) -> float:
+    """Time during which kernels of two or more streams ran at once."""
+    edges = sorted([(a, 1, st) for a, b, st in spans]
+                   + [(b, -1, st) for a, b, st in spans])
+    live, total, last = {}, 0.0, None
+    for t, d, st in edges:
+        if last is not None and sum(1 for n in live.values() if n > 0) >= 2:
+            total += t - last
+        live[st] = live.get(st, 0) + d
+        last = t
+    return total
+
+
+def profiled(fn):
+    """Run ``fn`` under torch.profiler (ending in a device synchronise);
+    returns its kernel spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_spans(prof)
+
+
+CONC_STREAMS = (1, 2, 4, 8)
+CONC_LAYERS = 16         # (k/v, gate/up) pairs of layers per stream
+
+
+def concurrency_phase(params, cfg):
+    """The paper's Fig 4/5 on the card: ``characterize_streams`` with 1,
+    2, 4 and 8 lanes (CUDA streams), serial and async. Every stream runs
+    kernel A at two decode shapes, k/v (M=4 K=4096 N=1024) and gate/up
+    (M=4 K=4096 N=14336), over CONC_LAYERS layers' own weights. Prints
+    each StreamReport and, from a profile of one async round at 8 streams,
+    the share of kernel time during which two or more streams ran at
+    once. No gate on the numbers."""
+    import torch
+    from repro_torch.core import concurrency as cc
+    from repro_torch.kernels import registry
+    hop = registry.get_backend("hopper")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn((SLOTS, cfg.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    layers = params["layers"]
+
+    def make(i):
+        ws = [(layers[(CONC_LAYERS * i + j) % len(layers)]["attn"]["w_k"],
+               layers[(CONC_LAYERS * i + j) % len(layers)]["mlp"]["w_gate"])
+              for j in range(CONC_LAYERS)]
+
+        def thunk():
+            out = None
+            for wk, wg in ws:
+                hop.dense(x, wk, out_dtype=torch.bfloat16)
+                out = hop.dense(x, wg, out_dtype=torch.bfloat16)
+            return out
+        return thunk
+
+    rows = []
+    for n in CONC_STREAMS:
+        for mode in ("serial", "async"):
+            rep = cc.characterize_streams(make, n, mode=mode, warmup=2)
+            row = {"n_streams": n, "mode": mode,
+                   "wall_ms": 1e3 * rep.wall_s,
+                   "serial_wall_ms": 1e3 * rep.serial_wall_s,
+                   "speedup": rep.speedup,
+                   "overlap_efficiency": rep.overlap_efficiency,
+                   "fairness": rep.fairness,
+                   "fairness_min_max": rep.fairness_min_max, "cv": rep.cv,
+                   "per_stream_ms": [1e3 * t for t in rep.per_stream_s]}
+            print(f"[concurrency] {json.dumps(row)}", flush=True)
+            rows.append(row)
+    n = CONC_STREAMS[-1]
+    lanes = [cc.ExecutionLane(f"stream{i}", index=i) for i in range(n)]
+    thunks = [make(i) for i in range(n)]
+    cc.run_async_dispatch(thunks, lanes)
+    torch.cuda.synchronize()
+    spans = profiled(lambda: cc.run_async_dispatch(thunks, lanes))
+    busy = busy_us(spans)
+    multi = multi_stream_us(spans)
+    kernel_time = sum(b - a for a, b, _ in spans)
+    span = max(b for _, b, _ in spans) - min(a for a, _, _ in spans)
+    print(f"[concurrency] one async round of {n} streams under "
+          f"torch.profiler: {len(spans)} kernels on "
+          f"{len({st for _, _, st in spans})} streams; kernel time "
+          f"{kernel_time / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms of "
+          f"the {span / 1e3:.3f} ms from the first kernel's start to the "
+          f"last one's end, two or more streams at once "
+          f"{multi / 1e3:.3f} ms = {multi / max(busy, 1e-9):.3f} of the "
+          "busy time", flush=True)
+    return rows
+
+
+RUNTIME_TENANTS = (("chat", "latency:12"), ("api", None),
+                   ("batch", "batch:0.9"))
+RUNTIME_REQUESTS = 12
+RUNTIME_POLICIES = ("bf16:dense:hopper", "bf16:sparse24:hopper")
+MIGRATE_AFTER = 3            # rounds before run C's migrate
+
+
+def runtime_requests(cfg):
+    """(tenant, Request) for RUNTIME_REQUESTS requests, four per tenant,
+    prompts of 128 and 77 random tokens in turn (numpy seed SEED)."""
+    import numpy as np
+    from repro_torch.runtime.serve_loop import Request
+    rng = np.random.default_rng(SEED)
+    out = []
+    for i in range(RUNTIME_REQUESTS):
+        n = PROMPT_LENS[i % len(PROMPT_LENS)]
+        prompt = rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+        out.append((RUNTIME_TENANTS[i % len(RUNTIME_TENANTS)][0],
+                    Request(uid=i, prompt=prompt, max_new=MAX_NEW)))
+    return out
+
+
+def runtime_spec(policies, overlap, pins=None, tenants=True):
+    """The runtime phase's spec: ``pins`` pins every tenant to that
+    partition (else ``spread`` places them); without ``tenants`` none is
+    declared (a replay registers the trace's own)."""
+    from repro_torch.runtime.server import (
+        PartitionSpec, ServingSpec, TenantSpec)
+    return ServingSpec(
+        partitions=tuple(PartitionSpec(policy=p, admission="fair_quantum")
+                         for p in policies),
+        placement="spread", batch_slots=SLOTS, max_len=MAX_LEN,
+        overlap=overlap, metrics=True,
+        tenants=tuple(TenantSpec(id=t, slo=slo, partition=pins)
+                      for t, slo in RUNTIME_TENANTS) if tenants else ())
+
+
+def drive_runtime(runtime, cfg, migrate=None):
+    """Submit the runtime requests and drain, one timed lockstep round at
+    a time (each ends in a device synchronise); ``migrate=(tenant, dst)``
+    migrates after MIGRATE_AFTER rounds. Returns the run's record: tokens
+    per request, wall, rounds, ms per round, the median of the rounds in
+    which every slot of every partition decoded, output tok/s."""
+    import torch
+    reqs = runtime_requests(cfg)
+    for tid, r in reqs:
+        runtime.submit(tid, r)
+    rounds, full = [], []
+    t_start = time.perf_counter()
+    while runtime.pending() or runtime.n_active or runtime._draining:
+        if migrate is not None and len(rounds) == MIGRATE_AFTER:
+            runtime.migrate(*migrate)
+        both = all(s.n_active == s.batch_slots for s in runtime.sessions)
+        t0 = time.perf_counter()
+        runtime.step()
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t0)
+        if both:
+            full.append(rounds[-1])
+        if len(rounds) > 400:
+            fail("[runtime] the runtime did not drain in 400 rounds")
+    wall = time.perf_counter() - t_start
+    outs = {r.uid: list(r.out) for _, r in reqs}
+    if any(not r.done or len(r.out) != MAX_NEW for _, r in reqs):
+        fail(f"[runtime] {sum(r.done for _, r in reqs)}/{len(reqs)} "
+             "requests completed in full")
+    n_tok = sum(len(o) for o in outs.values())
+    return {"outs": outs, "wall_s": wall, "rounds": len(rounds),
+            "ms_per_round": 1e3 * sum(rounds) / len(rounds),
+            "full_round_ms_median":
+                1e3 * sorted(full)[len(full) // 2] if full else None,
+            "tok_s": n_tok / wall, "tokens": n_tok}
+
+
+def profile_runtime_round(runtime, cfg, rec, warm_rounds=3):
+    """After a run: submit its requests again (new uids), step
+    ``warm_rounds`` rounds so that every slot decodes, then one round
+    under torch.profiler. Adds to ``rec`` the round's device busy ms, the
+    ms in which kernels of two or more streams ran at once, and the idle
+    share against the run's full-round median (the profiler slows the
+    host, so its own wall is not used)."""
+    import torch
+    for tid, r in runtime_requests(cfg):
+        r.uid += 1000
+        runtime.submit(tid, r)
+    for _ in range(warm_rounds):
+        runtime.step()
+    torch.cuda.synchronize()
+    spans = profiled(runtime.step)
+    busy = busy_us(spans) / 1e3
+    rec.update(profiled_round_busy_ms=busy,
+               profiled_round_multi_stream_ms=multi_stream_us(spans) / 1e3,
+               profiled_round_streams=len({st for _, _, st in spans}),
+               profiled_round_kernels=len(spans))
+    if rec["full_round_ms_median"]:
+        rec["idle_share"] = 1.0 - busy / rec["full_round_ms_median"]
+
+
+def runtime_launches_expected(runtime, cfg) -> dict:
+    """Kernel launches of a run from its partitions' prefill and decode
+    counts: per step (prefill or decode) a dense partition launches A for
+    its 7 linears per layer and the head, a sparse24 partition D for the
+    7 per layer and A for the head; each prefill launches B per layer."""
+    want = dict.fromkeys(("gemm", "flash_attention", "paged_attention",
+                          "sparse24_gemm", "block24_gemm"), 0)
+    per_layer = 7 * cfg.num_layers
+    for sess, tr in zip(runtime.sessions, runtime.tracers):
+        counts = tr.counts()
+        pre, dec = counts.get("prefill", 0), counts.get("decode", 0)
+        steps = pre + dec
+        want["flash_attention"] += cfg.num_layers * pre
+        if sess.policy.sparsity == "sparse24":
+            want["sparse24_gemm"] += per_layer * steps
+            want["gemm"] += steps
+        else:
+            want["gemm"] += (per_layer + 1) * steps
+    return want
+
+
+def runtime_report(tag, runtime, rec, launches, want) -> dict:
+    from repro_torch.runtime import traceview
+    rep = runtime.report()
+    merged = runtime.merged_tracer()
+    ov = merged.overlap_summary()
+    tenants = [{"tenant": t.tenant_id, "partition": t.partition,
+                "completed": t.completed,
+                "turnaround_steps": t.mean_turnaround_steps,
+                "queue_wait_steps": t.mean_queue_wait_steps,
+                "p50_latency_s": t.p50_latency_s,
+                "p99_latency_s": t.p99_latency_s, "slo": t.slo,
+                "slo_attainment": t.slo_attainment}
+               for t in rep.tenants]
+    doc = traceview.to_chrome_trace(merged)
+    slug = "".join(c if c.isalnum() else "_" for c in tag)
+    path = ROOT / "build" / "runtime_traces" / f"{slug}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    traceview.export_chrome_trace(merged, str(path))
+    check = traceview.validate(traceview.load(str(path)))
+    if check != traceview.validate(doc) or check["n_slices"] < \
+            merged.counts().get("decode", 0):
+        fail(f"[runtime] {tag}: the exported Chrome trace does not "
+             f"validate: {check}")
+    groups = traceview.overlapping_groups(doc)
+    out = {k: v for k, v in rec.items() if k != "outs"}
+    out.update(run=tag, policies=rep.policies, steps=rep.steps,
+               overlap_groups_formed=ov["groups"],
+               overlap_groups_in_trace=len(groups),
+               overlap_groups_overlapping_in_trace=sum(groups.values()),
+               launches=launches, launches_expected=want,
+               fairness=rep.fairness, tenants=tenants, trace=check,
+               migrations=[m.to_dict() for m in runtime.migrations])
+    print(f"[runtime] {tag}: {json.dumps(out)}", flush=True)
+    print("\n".join(f"[runtime]   {line}"
+                    for line in rep.summary().splitlines()), flush=True)
+    return out
+
+
+def runtime_phase(params, packed, cfg):
+    """``ServingRuntime`` on the card, llama3-8b at full depth, the
+    weights made above (and the 2:4 copy packed by the sparse24 run). Run
+    A: partitions ``bf16:dense:hopper`` and ``bf16:sparse24:hopper``
+    (logical partitions of the one card, sharing its weights), 4 slots
+    each, three tenants, twelve requests, lane overlap on; run B: the
+    same with overlap off; then each partition's requests through a
+    plain ``ServeSession`` of its policy. Run C: two dense partitions, all
+    tenants pinned to p0, ``migrate("batch", 1)`` after MIGRATE_AFTER
+    rounds, against the same run without the migration. Then one
+    WorkloadTrace replayed with overlap on and off. Gates: tokens equal
+    across A, B and the plain sessions, C equal to C without migration,
+    the replays' checksums equal, every request complete, launches of A,
+    B and D as expected, C and E never, the exported traces valid."""
+    import torch
+    from repro_torch.core import execution as ex
+    from repro_torch.models.layers import RuntimeCfg
+    from repro_torch.runtime import workload as wl
+    from repro_torch.runtime.serve_loop import ServeSession
+    from repro_torch.runtime.server import ServingRuntime
+
+    auto = ex.resolve_policy(SLOTS, cfg.d_model, cfg.d_ff,
+                             precision=cfg.precision, latency_sensitive=True,
+                             tenants=SLOTS, backend="hopper")
+    adv = ex.get_default_advisor()
+    print(f"[runtime] resolve_policy('auto') on the card for the decode "
+          f"GEMM ({SLOTS}, {cfg.d_model}, {cfg.d_ff}): "
+          f"{auto.full_spec()} (grid tiles "
+          f"{ex.grid_tiles(SLOTS, cfg.d_ff)}, {adv.n_cores} SMs, fill "
+          f"{ex.grid_tiles(SLOTS, cfg.d_ff) / adv.n_cores:.3f}); "
+          + "; ".join(auto.rationale), flush=True)
+    rt = RuntimeCfg(use_pallas=True)
+
+    def runtime(policies, overlap, **kw):
+        return ServingRuntime(params, cfg,
+                              runtime_spec(policies, overlap, **kw), rt=rt,
+                              device="cuda", packed_params=packed)
+
+    # runs A and B in turns (A, B, B, A): a difference between them is
+    # read against the spread between the two turns of each; the first
+    # turn of each is profiled afterwards
+    results, runs = {}, {}
+    for tag, overlap in (("runtime A overlap", True),
+                         ("runtime B no overlap", False),
+                         ("runtime B no overlap, turn 2", False),
+                         ("runtime A overlap, turn 2", True)):
+        rtm = runtime(RUNTIME_POLICIES, overlap)
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        rec = drive_runtime(rtm, cfg)
+        launches = launch_counts()
+        want = runtime_launches_expected(rtm, cfg)
+        results[tag] = runtime_report(tag, rtm, rec, launches, want)
+        if "turn 2" not in tag:
+            profile_runtime_round(rtm, cfg, rec)
+            print(f"[runtime] {tag}: one profiled round with every slot "
+                  f"decoding: {rec['profiled_round_kernels']} kernels on "
+                  f"{rec['profiled_round_streams']} streams, device busy "
+                  f"{rec['profiled_round_busy_ms']:.2f} ms, two or more "
+                  f"streams at once "
+                  f"{rec['profiled_round_multi_stream_ms']:.3f} ms; idle "
+                  f"share {rec.get('idle_share')} of the "
+                  f"{rec['full_round_ms_median']:.1f} ms full-round median",
+                  flush=True)
+        if launches != want:
+            fail(f"[runtime] {tag}: kernel launches {launches}, expected "
+                 f"{want}")
+        runs[tag] = (rec, dict(rtm.tenant_partition))
+        del rtm
+        torch.cuda.empty_cache()
+    (a, placement) = runs["runtime A overlap"]
+    same = min(sum(a["outs"][u] == rec["outs"][u] for u in a["outs"])
+               for rec, _ in runs.values())
+    print(f"[runtime] tokens of run A (overlap) equal run B (no overlap) "
+          f"and both second turns for {same}/{len(a['outs'])} requests",
+          flush=True)
+    if same != len(a["outs"]):
+        fail("[runtime] lane overlap changed the tokens")
+    # each partition's requests through a plain session of its policy
+    plain = {}
+    for i, pol in enumerate(RUNTIME_POLICIES):
+        reqs = [r for tid, r in runtime_requests(cfg) if placement[tid] == i]
+        sess = ServeSession(packed if "sparse24" in pol else params, cfg,
+                            batch_slots=SLOTS, max_len=MAX_LEN, rt=rt,
+                            policy=pol, device="cuda")
+        for r in reqs:
+            sess.submit(r)
+        sess.run()
+        plain.update({r.uid: list(r.out) for r in reqs})
+        del sess
+    same = sum(a["outs"][u] == plain[u] for u in a["outs"])
+    print(f"[runtime] tokens of run A equal a plain ServeSession of each "
+          f"partition's policy for {same}/{len(a['outs'])} requests "
+          f"(placement {placement})", flush=True)
+    if same != len(a["outs"]):
+        fail("[runtime] the runtime's tokens differ from a plain session's")
+
+    dense2 = (RUNTIME_POLICIES[0], RUNTIME_POLICIES[0])
+    outs = {}
+    for tag, mig in (("runtime C migrate", ("batch", 1)),
+                     ("runtime C no migrate", None)):
+        rtm = runtime(dense2, True, pins=0)
+        zero_launch_counts()
+        rec = drive_runtime(rtm, cfg, migrate=mig)
+        launches = launch_counts()
+        want = runtime_launches_expected(rtm, cfg)
+        results[tag] = runtime_report(tag, rtm, rec, launches, want)
+        if launches != want:
+            fail(f"[runtime] {tag}: kernel launches {launches}, expected "
+                 f"{want}")
+        if mig is not None:
+            phases = [e.meta["phase"]
+                      for e in rtm.merged_tracer().events("migrate")]
+            print(f"[runtime] {tag}: migrate events {phases}; handoffs "
+                  f"{rtm.migrations[0].slots_handed_off}", flush=True)
+            if not all(p in phases for p in ("start", "handoff", "done")) \
+                    or not results[tag]["trace"]["migration_flows"]:
+                fail(f"[runtime] {tag}: the tracers lack the migrate "
+                     "start/handoff/done events or the trace its flows")
+        outs[tag] = rec["outs"]
+        del rtm
+        torch.cuda.empty_cache()
+    same = sum(outs["runtime C migrate"][u] == outs["runtime C no migrate"][u]
+               for u in outs["runtime C no migrate"])
+    print(f"[runtime] tokens of run C (migrate batch -> p1 mid-flight) "
+          f"equal the run without migration for {same}/"
+          f"{len(outs['runtime C no migrate'])} requests", flush=True)
+    if same != len(outs["runtime C no migrate"]):
+        fail("[runtime] the live migration changed the tokens")
+
+    trace = wl.generate(wl.WorkloadSpec(
+        tenants=len(RUNTIME_TENANTS), arrival="poisson", rate=0.75, steps=8,
+        prompt_len=(min(PROMPT_LENS), max(PROMPT_LENS)),
+        max_new=(MAX_NEW, MAX_NEW), vocab=cfg.vocab_size,
+        slos=tuple(slo for _, slo in RUNTIME_TENANTS), seed=SEED))
+    sums = {}
+    for overlap in (True, False):
+        rtm = runtime(RUNTIME_POLICIES, overlap, tenants=False)
+        t0 = time.perf_counter()
+        done = wl.run_trace(rtm, trace)
+        torch.cuda.synchronize()
+        sums[overlap] = wl.token_checksum(done)
+        print(f"[runtime] replay of a WorkloadTrace ({len(trace.events)} "
+              f"arrivals, prompts "
+              f"{sorted(len(e.prompt) for e in trace.events)}, "
+              f"{MAX_NEW} new tokens) overlap={overlap}: "
+              f"{len(done)} requests in {rtm.step_count} rounds, "
+              f"{time.perf_counter() - t0:.2f}s, "
+              f"tokens_checksum={sums[overlap]}", flush=True)
+        if len(done) != len(trace.events):
+            fail("[runtime] the replay did not complete every request")
+        del rtm
+    if sums[True] != sums[False]:
+        fail("[runtime] the replay's checksums differ with overlap on/off")
+    torch.cuda.empty_cache()
+    return {tag: {"launches": r["launches"]} for tag, r in results.items()}
+
 
 
 def is_port_gemm(kernel_name: str) -> bool:
@@ -1616,20 +2071,13 @@ def profile_decode(sess, requests, step_ms: float, steps: int = 4):
         for _ in range(steps):
             sess.decode_once()
         torch.cuda.synchronize()
-    spans, by_name = [], {}
+    by_name = {}
     for e in prof.events():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            a, b = e.time_range.start, e.time_range.end
-            spans.append((a, b))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
-    busy, end = 0.0, None
-    for a, b in sorted(spans):
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.end - e.time_range.start
+    spans = device_spans(prof)
+    busy = busy_us(spans)
     if not spans:
         print("[profile] no device events from torch.profiler: device "
               "busy time not measured", flush=True)

@@ -10,12 +10,17 @@ It also holds the block-shape cache (:class:`BlockShapeCache`, seeded
 from Table 3, and the module-level :data:`BLOCK_CACHE` that
 ``sweep_paged_tilings`` records into) and :func:`parse_pagedsweep_name`.
 
+The runtime half: :func:`resolve_policy` (the occupancy advisor at
+session set-up, with :func:`set_default_advisor`), :func:`dispatch_matmul`
+(the lane-dispatched form of :func:`matmul`) and the
+:class:`OverlapPlanner` that pairs partitions for lane overlap from
+measured decode latencies.
+
 Policy strings written for the JAX package parse unchanged: ``pallas``
 names the ``hopper`` backend, ``pallas_sparse24`` the ``hopper_sparse24``
 backend, ``pallas_paged`` the ``hopper_paged`` backend and ``jnp`` the
-``torch`` backend. Not ported yet: ``resolve_policy`` (the occupancy
-advisor), ``seed_cache_from_records``, the overlap planner and the
-module-level default setters.
+``torch`` backend. Not ported yet: ``seed_cache_from_records`` and the
+module-level default policy/backend setters.
 """
 from __future__ import annotations
 
@@ -23,15 +28,21 @@ import contextlib
 import contextvars
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import concurrency as cc
 from repro_torch.core import sparsity as sp
 from repro_torch.kernels import registry
 
 PRECISIONS = ("bf16", "fp8")
 SPARSITIES = ("dense", "sparse24")
+
+# One unit of grid parallelism for the occupancy advisor: the reference's
+# prior (an output tile of 128 × 128), kept so the advisor decides as the
+# reference does. It is not the tile of the port's kernels.
+MXU_TILE = 128
 
 # JAX backend names → the port's backends.
 BACKEND_ALIASES = {"pallas": "hopper", "pallas_sparse24": "hopper_sparse24",
@@ -337,3 +348,247 @@ def parse_pagedsweep_name(name: str
     if len(blocks) != 3:
         return None
     return m, n, k, parts[1], blocks
+
+
+# ---------------------------------------------------------------------------
+# Policy resolver (OccupancyAdvisor at session set-up)
+# ---------------------------------------------------------------------------
+
+def grid_tiles(m: int, n: int, tile: int = MXU_TILE) -> int:
+    """Tile fill of an (M, N) output — the advisor's 'active wavefronts'."""
+    return max(1, -(-m // tile)) * max(1, -(-n // tile))
+
+
+# Advisor installed by a calibration step: when set, resolve_policy
+# decides from its thresholds instead of the §9.2 priors.
+_default_advisor: Optional[cc.OccupancyAdvisor] = None
+
+
+def set_default_advisor(advisor: Optional[cc.OccupancyAdvisor]) -> None:
+    global _default_advisor
+    _default_advisor = advisor
+
+
+def get_default_advisor() -> cc.OccupancyAdvisor:
+    return _default_advisor if _default_advisor is not None \
+        else cc.OccupancyAdvisor()
+
+
+def _ambient_tracer():
+    from repro_torch.runtime import telemetry
+    return telemetry.get_tracer()
+
+
+def resolve_policy(m: int, k: int, n: int, *,
+                   precision: str = "fp8",
+                   backend: Optional[str] = None,
+                   latency_sensitive: bool = False,
+                   tenants: int = 1,
+                   streams: Optional[int] = None,
+                   advisor: Optional[cc.OccupancyAdvisor] = None,
+                   cache: Optional[BlockShapeCache] = None,
+                   tracer=None) -> ExecutionPolicy:
+    """Pick the execution policy the paper's §9.2 rules would pick.
+
+    ``(m, k, n)`` is the dominant GEMM of the workload (tokens × d_model ×
+    d_ff for an LLM step); the advisor sees its grid-tile fill and may
+    demote FP8 below the occupancy threshold, enable/disable 2:4, and cap
+    the stream count. An explicit ``backend`` (or its JAX name) wins;
+    otherwise a packed-2:4 policy on a ``hopper`` default takes
+    ``hopper_sparse24``, else the module default. The advisor's core count
+    is the card's SM count on the card, so the card may resolve another
+    policy than the CPU for the same shape. The decision is recorded to
+    ``tracer`` (or the ambient telemetry tracer)."""
+    advisor = advisor or get_default_advisor()
+    profile = cc.WorkloadProfile(
+        precision=precision,
+        grid_tiles=grid_tiles(m, n),
+        latency_sensitive=latency_sensitive,
+        concurrent_tenants=tenants)
+    advice = advisor.advise(profile)
+
+    sparsity = "sparse24" if advice.use_sparsity and k % 8 == 0 else "dense"
+    chosen_backend = BACKEND_ALIASES.get(backend, backend) \
+        if backend is not None else (
+            "hopper_sparse24" if sparsity == "sparse24"
+            and DEFAULT_BACKEND.startswith("hopper") else DEFAULT_BACKEND)
+    registry.get_backend(chosen_backend)
+
+    dtype = torch.float8_e4m3fn if advice.suggested_precision == "fp8" \
+        else torch.bfloat16
+    blocks = (cache if cache is not None else BLOCK_CACHE).lookup(
+        m, k, n, dtype) or (None,) * 3
+
+    n_streams = advice.max_streams if streams is None \
+        else min(streams, advice.max_streams)
+    pol = ExecutionPolicy(
+        precision=advice.suggested_precision,
+        sparsity=sparsity,
+        backend=chosen_backend,
+        block_m=blocks[0], block_n=blocks[1], block_k=blocks[2],
+        streams=max(1, n_streams),
+        rationale=tuple(advice.rationale))
+    tr = tracer if tracer is not None else _ambient_tracer()
+    if tr is not None:
+        tr.record_resolve(m, k, n, policy=pol.spec(),
+                          precision=pol.precision, backend=pol.backend,
+                          fill=profile.grid_tiles / advisor.n_cores,
+                          calibrated=advisor.calibrated,
+                          streams=pol.streams)
+    return pol
+
+
+# ---------------------------------------------------------------------------
+# The lane-dispatched matmul
+# ---------------------------------------------------------------------------
+
+def dispatch_matmul(x: torch.Tensor, w,
+                    policy: Optional[ExecutionPolicy] = None, *,
+                    out_dtype=torch.bfloat16, lane=None, overlap_group=-1,
+                    tracer=None) -> "cc.LaneHandle":
+    """Async form of :func:`matmul`: enqueue the GEMM on ``lane``'s stream
+    through the policy's backend :meth:`~repro_torch.kernels.registry.
+    MatmulBackend.dispatch` entry and return a joinable
+    :class:`~repro_torch.core.concurrency.LaneHandle`. Same routing as
+    :func:`matmul` (PackedWeight → sparse24, fp8 2-D dense → fp8, else
+    dense); the dispatch is recorded with its lane and overlap group."""
+    pol = policy or get_default_policy()
+    be = registry.get_backend(pol.backend)
+    packed = isinstance(w, PackedWeight)
+    tr = tracer if tracer is not None else _ambient_tracer()
+    if tr is not None:
+        kk, nn = (w.k, w.n) if packed else (w.shape[-2], w.shape[-1])
+        mm = 1
+        for d in x.shape[:-1]:
+            mm *= int(d)
+        tr.record_matmul(mm, int(kk), int(nn),
+                         precision=pol.precision, backend=pol.backend,
+                         policy=pol.spec(),
+                         lane=getattr(lane, "name", ""),
+                         overlap_group=overlap_group,
+                         op="sparse24" if packed else
+                         ("fp8" if pol.precision == "fp8"
+                          and w.dim() == 2 else "dense"))
+    if packed:
+        return be.dispatch("sparse24", x, w.values, w.meta, lane=lane,
+                           overlap_group=overlap_group,
+                           out_dtype=out_dtype, **pol.blocks)
+    if pol.precision == "fp8" and w.dim() == 2:
+        return be.dispatch("fp8", x, w, lane=lane,
+                           overlap_group=overlap_group,
+                           out_dtype=out_dtype, **pol.blocks)
+    return be.dispatch("dense", x, w, lane=lane,
+                       overlap_group=overlap_group,
+                       out_dtype=out_dtype, **pol.blocks)
+
+
+# ---------------------------------------------------------------------------
+# Overlap planning (measured online pairing — AsyncSparse / paper §6)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class OverlapCandidate:
+    """One unit of dispatchable work the planner may co-schedule.
+
+    ``ema_s`` is the Tracer's measured per-shape latency EMA for the
+    work's dominant GEMM (``None`` = never measured → stays serial this
+    round); ``allowed`` carries the owning policy's ``overlap`` gate."""
+    index: int
+    sparsity: str = "dense"
+    shape: Optional[Tuple[int, int, int, str]] = None
+    ema_s: Optional[float] = None
+    allowed: bool = True
+
+
+@dataclasses.dataclass
+class OverlapPlan:
+    """The planner's verdict for one dispatch round: ``groups`` are tuples
+    of candidate indices to co-dispatch (one overlap-group id each);
+    ``serial`` indices run alone. Every candidate index appears exactly
+    once across the two."""
+    groups: Tuple[Tuple[int, ...], ...]
+    serial: Tuple[int, ...]
+
+    @property
+    def n_overlapped(self) -> int:
+        return sum(len(g) for g in self.groups)
+
+
+class OverlapPlanner:
+    """Measured online pairing of sparse24/dense work for lane overlap.
+
+    Work is dispatched serial until the Tracer has a measured latency EMA
+    for its shape, then sparse24 candidates are paired with the dense
+    candidate of closest measured latency — a balanced pair overlaps
+    fully, while a lopsided one (ratio above ``max_imbalance``) would just
+    serialize behind its slow member, so it stays serial. Leftover
+    same-kind candidates are paired by adjacent measured latency when
+    ``pair_homogeneous`` (two dense partitions still overlap host work
+    with device work). The EMAs are wall times, so the pairing may differ
+    from run to run; the token streams do not.
+    """
+
+    def __init__(self, *, max_imbalance: float = 8.0,
+                 pair_homogeneous: bool = True):
+        if max_imbalance < 1.0:
+            raise ValueError("max_imbalance must be >= 1.0")
+        self.max_imbalance = max_imbalance
+        self.pair_homogeneous = pair_homogeneous
+
+    def _ratio(self, a: OverlapCandidate, b: OverlapCandidate) -> float:
+        hi = max(a.ema_s, b.ema_s)
+        lo = max(min(a.ema_s, b.ema_s), 1e-12)
+        return hi / lo
+
+    def candidate(self, index: int, *, sparsity: str = "dense",
+                  shape: Optional[Tuple[int, int, int, str]] = None,
+                  tracer=None, allowed: bool = True) -> OverlapCandidate:
+        """Build a candidate, looking its shape's measured EMA up in the
+        tracer (``None`` EMA when unmeasured — "measure first, overlap
+        second")."""
+        ema = None
+        if tracer is not None and shape is not None:
+            ema = tracer.shape_latency_ema().get(tuple(shape))
+        return OverlapCandidate(index=index, sparsity=sparsity,
+                                shape=shape, ema_s=ema, allowed=allowed)
+
+    def plan(self, candidates: Sequence[OverlapCandidate]) -> OverlapPlan:
+        serial = [c.index for c in candidates
+                  if not c.allowed or c.ema_s is None]
+        live = [c for c in candidates if c.allowed and c.ema_s is not None]
+        sparse = [c for c in live if c.sparsity == "sparse24"]
+        dense = [c for c in live if c.sparsity != "sparse24"]
+        groups = []
+        used = set()
+        # 1) each sparse24 candidate takes the closest-latency dense one
+        for s in sparse:
+            best, best_ratio = None, None
+            for d in dense:
+                if d.index in used:
+                    continue
+                ratio = self._ratio(s, d)
+                if ratio > self.max_imbalance:
+                    continue
+                if best_ratio is None or ratio < best_ratio:
+                    best, best_ratio = d, ratio
+            if best is not None:
+                used.add(s.index)
+                used.add(best.index)
+                groups.append((s.index, best.index))
+        # 2) leftovers pair by adjacent measured latency
+        left = sorted((c for c in live if c.index not in used),
+                      key=lambda c: (c.ema_s, c.index))
+        if self.pair_homogeneous:
+            i = 0
+            while i + 1 < len(left):
+                a, b = left[i], left[i + 1]
+                if self._ratio(a, b) <= self.max_imbalance:
+                    groups.append((a.index, b.index))
+                    used.add(a.index)
+                    used.add(b.index)
+                    i += 2
+                else:
+                    i += 1
+        serial.extend(c.index for c in left if c.index not in used)
+        return OverlapPlan(groups=tuple(tuple(g) for g in groups),
+                           serial=tuple(sorted(serial)))

@@ -28,15 +28,21 @@ own tile from M.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.core import concurrency as cc
 from repro_torch.core import fp8 as fp8lib
 from repro_torch.core import sparsity as sp
 from repro_torch.kernels import fp8_matmul as fm
 from repro_torch.kernels import ref
 from repro_torch.kernels import sparse24_matmul as sm
+
+# The four matmul flavors every backend provides — also the valid ``kind``
+# values for the async :meth:`MatmulBackend.dispatch` entry point.
+KINDS = ("dense", "fp8", "fp8_qdot", "sparse24")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +54,27 @@ class MatmulBackend:
     fp8_qdot: Callable
     sparse24: Callable
     description: str = ""
+
+    def entry(self, kind: str) -> Callable:
+        if kind not in KINDS:
+            raise KeyError(
+                f"unknown matmul kind {kind!r}; one of {', '.join(KINDS)}")
+        return getattr(self, kind)
+
+    def dispatch(self, kind: str, *operands, lane=None, overlap_group=-1,
+                 **kw) -> "cc.LaneHandle":
+        """Async entry point: enqueue ``kind`` on ``lane``'s stream and
+        return a joinable :class:`~repro_torch.core.concurrency.LaneHandle`
+        (``join()`` waits on the event recorded after the call). Without a
+        lane, a throwaway lane named after the backend is made on the
+        first operand's device; a CPU operand runs synchronously."""
+        fn = self.entry(kind)
+        if lane is None:
+            lane = cc.ExecutionLane(f"{self.name}:{kind}",
+                                    device=operands[0].device)
+        return lane.dispatch(functools.partial(fn, *operands, **kw),
+                             label=f"{self.name}.{kind}",
+                             overlap_group=overlap_group)
 
 
 _REGISTRY: Dict[str, MatmulBackend] = {}

@@ -31,23 +31,40 @@ session grows each slot for the ``k`` candidate positions, falls back to
 plain decode for the step when the pool cannot cover the whole batch, and
 trims the pages the rejected writes grew into. ``k = 1`` is the plain path.
 
+A decode step is split in two: :meth:`ServeSession.dispatch_decode`
+enqueues it on an :class:`~repro_torch.core.concurrency.ExecutionLane`'s
+CUDA stream and returns a :class:`DecodeTicket` without waiting, and
+:meth:`ServeSession.join_decode` waits on the ticket's event and does the
+host-side token accounting; ``decode_once`` is the two back to back. A
+speculative step runs its draft chain on a second lane, and the verify's
+stream waits on the draft's event (the draft writes the cache in place).
+The stream rule: the session's slot work (admit's prefill and cache write,
+the scrub on free, ``export_slot``/``import_slot``) runs on the caller's
+current stream; a lane's stream first waits on the caller's stream, and
+every tensor made on the caller's stream that a lane reads is marked in
+use there (``record_stream``). Host state (tokens, positions, completions)
+changes only in the join, after the host has waited on the lane, so the
+token stream is the same whatever other lanes do in between. Nothing
+between dispatch and join reads a device tensor on the host.
+
 Where the reference donates the cache to its jitted helpers, the port
-updates the cache tensors in place. Not ported yet: sampling
-(``temperature > 0``; the port serves greedy, the only mode whose tokens
-can be held against the reference), the ``auto`` policy resolver, lanes
-(the reference overlaps draft and verify on them) and telemetry;
-``decode_once`` is synchronous.
+updates the cache tensors in place. Not ported: sampling (``temperature >
+0``; the port serves greedy, the only mode whose tokens can be held
+against the reference). ``seed`` is accepted for the reference's
+signature; greedy decode draws nothing from it.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import concurrency as cc
 from repro_torch.core import execution as ex
 from repro_torch.core import paging
 from repro_torch.core import speculative as spv
@@ -57,17 +74,7 @@ from repro_torch.models.transformer import (
     Caches, decode_step, init_cache, init_paged_cache, paged_decode_step,
     prefill)
 
-
-def resolve_device(device=None) -> torch.device:
-    """The device a session runs on: ``cuda`` unless the caller names one.
-    Without a CUDA device the caller must ask for the CPU explicitly."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port serves on the card; pass "
-            "device='cpu' to run on the CPU")
-    return torch.device("cuda")
+resolve_device = cc.resolve_device
 
 
 def make_prefill_step(cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT,
@@ -122,9 +129,23 @@ class Request:
     max_new: int
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
-    # the tenant a request belongs to: the speculative totals are kept by
-    # it ("" when None)
+    # Telemetry (filled by ServeSession/StreamScheduler; wall-clock seconds
+    # from perf_counter, step indices in scheduler virtual time).
     tenant: Optional[str] = None
+    submit_t: float = 0.0
+    admit_t: float = 0.0
+    finish_t: float = 0.0
+    submit_step: int = -1
+    admit_step: int = -1
+    finish_step: int = -1
+
+    @property
+    def latency_s(self) -> float:
+        return max(0.0, self.finish_t - self.submit_t)
+
+    @property
+    def queue_wait_s(self) -> float:
+        return max(0.0, self.admit_t - self.submit_t)
 
 
 @dataclasses.dataclass
@@ -230,6 +251,33 @@ def _paged_put_slot(caches: Caches, state: Caches,
             c[key][idx] = s[key].to(device=c[key].device, dtype=c[key].dtype)
 
 
+@dataclasses.dataclass
+class DecodeTicket:
+    """One in-flight decode step: dispatched on an ExecutionLane but not
+    yet joined. ``handle`` is None when the session had no active slots
+    (nothing was enqueued; only ``oom_done`` carries information).
+    Produced by :meth:`ServeSession.dispatch_decode`, consumed exactly
+    once by :meth:`ServeSession.join_decode`."""
+    handle: Optional[cc.LaneHandle]
+    oom_done: List[Request]
+    lane: str = ""
+    overlap_group: int = -1
+    t0: float = 0.0
+    # Speculative decode: the depth this step ran at (1 = plain decode)
+    # and the draft chain's own lane handle.
+    spec_k: int = 1
+    draft_handle: Optional[cc.LaneHandle] = None
+
+
+def _in_use_on(lane: cc.ExecutionLane, *tensors: torch.Tensor) -> None:
+    """Mark tensors made on the caller's stream as in use on ``lane``'s
+    stream, so the allocator does not hand their blocks out again before
+    the lane is done with them (no-op on a CPU lane)."""
+    if lane.stream is not None:
+        for t in tensors:
+            t.record_stream(lane.stream)
+
+
 def _to_device(tree, device):
     if isinstance(tree, ex.PackedWeight):
         return ex.PackedWeight(tree.values.to(device), tree.meta.to(device))
@@ -245,15 +293,26 @@ class ServeSession:
     paged with ``paged=True``).
 
     ``submit``/``step``/``run`` drive a single FIFO queue; the slot-level
-    API is ``can_admit(req)`` → ``admit(req)`` → ``decode_once()``.
-    ``last_logits`` holds the logits of the latest prefill (1, Vp), decode
-    step (slots, Vp) or speculative verify (slots, k, Vp).
+    API is ``can_admit(req)`` → ``admit(req)`` → ``decode_once()`` (or
+    ``dispatch_decode(lane)`` … ``join_decode(ticket)``). ``last_logits``
+    holds the logits of the latest prefill (1, Vp), decode step (slots, Vp)
+    or speculative verify (slots, k, Vp).
+
+    ``policy`` is an :class:`~repro_torch.core.execution.ExecutionPolicy`,
+    a policy spec string, ``"auto"`` (resolved by the occupancy advisor
+    for the decode GEMM (slots, d_model, d_ff), latency-sensitive, one
+    tenant per slot; ``auto_backend`` overrides the backend it picks) or
+    None. ``telemetry`` is a
+    :class:`~repro_torch.runtime.telemetry.Tracer` (duck-typed) that
+    receives the session's ``prefill``, ``decode``, ``spec`` and
+    ``paging`` events.
     """
 
     def __init__(self, params, cfg: ArchConfig, *, batch_slots: int,
                  max_len: int, rt: RuntimeCfg = DEFAULT_RT,
-                 temperature: float = 0.0, eos_id: int = -1,
-                 policy=None, verbose_policy: bool = False,
+                 temperature: float = 0.0, eos_id: int = -1, seed: int = 0,
+                 policy=None, auto_backend: Optional[str] = None,
+                 verbose_policy: bool = False, telemetry=None,
                  paged: bool = False, page_size: int = 16,
                  pages: Optional[int] = None, speculative=None, device=None):
         # verify-by-argmax has no exact acceptance rule for sampled decode
@@ -267,11 +326,18 @@ class ServeSession:
             raise NotImplementedError(
                 "sampled decode (temperature > 0) is not ported; the port "
                 "serves greedy")
-        if isinstance(policy, str):
-            raise NotImplementedError(
-                f"policy {policy!r}: the policy resolver is ported in a "
-                "later slice; pass an ExecutionPolicy")
         self.device = resolve_device(device)
+        if policy == "auto":
+            # paper-§9.2 resolution at session construction: the dominant
+            # decode GEMM is (slots, d_model, d_ff); decode is
+            # latency-sensitive and each slot is a tenant.
+            policy = ex.resolve_policy(
+                batch_slots, cfg.d_model, cfg.d_ff,
+                precision=cfg.precision, latency_sensitive=True,
+                tenants=batch_slots, backend=auto_backend)
+        elif isinstance(policy, str):
+            policy = ex.parse_policy(policy)
+        self.tracer = telemetry
         if policy is not None:
             cfg, rt = ex.apply_policy(cfg, rt, policy)
             if verbose_policy:
@@ -318,6 +384,9 @@ class ServeSession:
         self.queue: List[Request] = []
         self.completed: List[Request] = []
         self.last_logits: Optional[torch.Tensor] = None
+        self._inflight: Optional[DecodeTicket] = None
+        self._lane: Optional[cc.ExecutionLane] = None
+        self._draft_lane: Optional[cc.ExecutionLane] = None
         # -- speculative decode state
         self._spec_fns: Dict[int, Tuple[Callable, Callable]] = {}
         self._spec_deltas: List[Tuple[str, int, int]] = []
@@ -346,6 +415,13 @@ class ServeSession:
         if isinstance(self.policy, ex.ExecutionPolicy):
             return ex.policy_scope(self.policy)
         return contextlib.nullcontext()
+
+    def _policy_tag(self) -> Dict[str, str]:
+        """Event attribution for this session's serving ops."""
+        if isinstance(self.policy, ex.ExecutionPolicy):
+            return {"policy": self.policy.spec(),
+                    "backend": self.policy.backend}
+        return {}
 
     @property
     def n_active(self) -> int:
@@ -398,19 +474,29 @@ class ServeSession:
             page_ids = self.pager.alloc_slot(slot, lp + 1)
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None, :]
+        t0 = time.perf_counter()
         with self._policy_scope():
             logits, pcaches = self.prefill_fn(self.params, prompt)
+        tok = int(torch.argmax(logits[0]))      # waits for the prefill
+        if self.tracer is not None:
+            self.tracer.record(
+                "prefill", m=lp, k=self.cfg.d_model, n=self.cfg.d_ff,
+                precision=self.cfg.precision, **self._policy_tag(),
+                wall_s=time.perf_counter() - t0,
+                tenant=req.tenant or "", meta={"uid": req.uid, "slot": slot})
         if self.paged:
             _paged_write_prompt(self.caches, pcaches,
                                 self._phys_padded(page_ids))
             self._sync_page_map()
+            self.pager.record(self.tracer, phase="admit", slot=slot,
+                              tenant=req.tenant or "", uid=req.uid)
         else:
             _write_slot_cache(self.caches, pcaches, slot)
         self.last_logits = logits
-        tok = int(torch.argmax(logits[0]))
         self.slots[slot] = req
         self.slot_pos[slot] = lp
         self.tokens[slot, 0] = tok
+        req.admit_t = time.perf_counter()
         req.out.append(tok)
         self._maybe_finish(slot, tok)
         return slot
@@ -423,6 +509,7 @@ class ServeSession:
             # scrub the released pages BEFORE the free list hands them out
             _paged_clear_slot(self.caches, self._phys_padded(released))
             self._sync_page_map()
+            self.pager.record(self.tracer, phase="free", slot=slot)
         else:
             _clear_slot_cache(self.caches, slot)
         self.tokens[slot, 0] = 0
@@ -442,6 +529,11 @@ class ServeSession:
                              caches=_paged_take_slot(self.caches, page_ids),
                              pos=pos, token=token, pages=len(page_ids),
                              page_size=self.page_size)
+            if self.tracer is not None:
+                self.pager.record(self.tracer, phase="export", slot=slot,
+                                  tenant=req.tenant or "",
+                                  pages_moved=len(page_ids),
+                                  handoff_bytes=export_nbytes(out))
         else:
             state = [{key: c[key][slot].clone() for key in ("k", "v", "pos")}
                      for c in self.caches]
@@ -503,6 +595,9 @@ class ServeSession:
                                               export.pos + 1)
             _paged_put_slot(self.caches, export.caches, page_ids)
             self._sync_page_map()
+            self.pager.record(self.tracer, phase="import", slot=slot,
+                              tenant=export.request.tenant or "",
+                              pages_moved=export.pages)
         else:
             _restore_slot_cache(self.caches, export.caches, slot)
         self.slots[slot] = export.request
@@ -521,7 +616,11 @@ class ServeSession:
             tgt = min(int(self.slot_pos[i]) + k, self.max_len)
             need += max(0, self.pager.pages_for(tgt)
                         - len(self.pager.slot_pages(i)))
-        return need > self.pager.free_pages
+        if need > self.pager.free_pages:
+            self.pager.record(self.tracer, phase="spec_downgrade",
+                              need_pages=need)
+            return True
+        return False
 
     def _grow_pages(self, k: int = 1) -> List[Request]:
         """Lazy page append before a paged decode step: every active slot
@@ -540,7 +639,10 @@ class ServeSession:
                     self.pager.extend_slot(i, need)
                     self._sync_page_map()
                 except paging.PagesExhausted:
+                    self.pager.record(self.tracer, phase="page_oom", slot=i,
+                                      tenant=req.tenant or "", uid=req.uid)
                     req.done = True
+                    req.finish_t = time.perf_counter()
                     self.completed.append(req)
                     self.free_slot(i)
                     done.append(req)
@@ -576,24 +678,145 @@ class ServeSession:
         out, self._spec_deltas = self._spec_deltas, []
         return out
 
-    def _spec_step(self, k: int, posv: torch.Tensor) -> List[Request]:
-        """A k-deep speculative step: the draft chain, then the verify, on
-        the session's stream; then the commit of each slot's accepted
-        prefix and the verify's token. The caches are rolled back in place
-        before the host reads the accepted counts."""
-        active = torch.as_tensor([s is not None for s in self.slots],
-                                 device=self.device)
-        draft, verify = self._spec_fns_for(k)
+    def _default_lane(self) -> cc.ExecutionLane:
+        if self._lane is None:
+            self._lane = cc.ExecutionLane("session", device=self.device)
+        return self._lane
+
+    def _draft_lane_for(self) -> cc.ExecutionLane:
+        """The draft chain's lane, reporting to the session's current
+        tracer (a scheduler may hand the session another one)."""
+        if self._draft_lane is None:
+            self._draft_lane = cc.ExecutionLane("draft", device=self.device)
+        self._draft_lane.tracer = self.tracer
+        return self._draft_lane
+
+    def dispatch_decode(self, lane: Optional[cc.ExecutionLane] = None, *,
+                        overlap_group: int = -1) -> DecodeTicket:
+        """Dispatch half of a decode step: page bookkeeping, then the step
+        enqueued on ``lane``'s stream (the session's own lane by default)
+        without waiting, and a :class:`DecodeTicket` back. The cache is
+        written in place by the enqueued step; host state (tokens,
+        positions, completions) is touched only by :meth:`join_decode`.
+        A speculative step runs its draft chain on a second lane, and the
+        verify's stream waits on the draft's event."""
+        if self._inflight is not None:
+            raise RuntimeError(
+                "decode already in flight: join_decode the previous "
+                "ticket before dispatching another step")
+        if self.n_active == 0:
+            return DecodeTicket(handle=None, oom_done=[])
+        k = self._next_spec_k()
+        oom_done: List[Request] = []
+        if self.paged:
+            if k > 1 and self._spec_pages_short(k):
+                k = 1      # the pool cannot cover the batch: plain decode
+            oom_done = self._grow_pages(k)
+            if self.n_active == 0:
+                return DecodeTicket(handle=None, oom_done=oom_done)
+        lane = lane if lane is not None else self._default_lane()
+        t0 = time.perf_counter()
+        # staged from host memory at once; slot_pos changes only in the join
+        posv = torch.as_tensor(self.slot_pos.astype(np.int64),
+                               device=self.device)
         paged = (self._page_map,) if self.paged else ()
+        if k > 1:
+            active = torch.as_tensor([s is not None for s in self.slots],
+                                     device=self.device)
+            draft, verify = self._spec_fns_for(k)
+            dlane = self._draft_lane_for()
+            tokens, caches = self.tokens, self.caches
+            _in_use_on(dlane, posv, tokens, *paged)
+            _in_use_on(lane, posv, active, *paged)
+
+            def verify_thunk():
+                seq = dh.result
+                _in_use_on(lane, seq)
+                return verify(self.params, seq, caches, posv, active, *paged)
+
+            with self._policy_scope():
+                dh = dlane.dispatch(
+                    lambda: draft(self._draft_params, tokens, caches, posv,
+                                  *paged),
+                    label="draft", overlap_group=overlap_group)
+                handle = lane.dispatch(verify_thunk, label="decode",
+                                       overlap_group=overlap_group,
+                                       after=(dh,))
+            ticket = DecodeTicket(handle=handle, oom_done=oom_done,
+                                  lane=lane.name,
+                                  overlap_group=overlap_group, t0=t0,
+                                  spec_k=k, draft_handle=dh)
+            self._inflight = ticket
+            return ticket
+        tokens, caches = self.tokens, self.caches
+        _in_use_on(lane, posv, tokens, *paged)
         with self._policy_scope():
-            seq = draft(self._draft_params, self.tokens, self.caches, posv,
-                        *paged)
-            nxt, greedy, n_acc, self.caches, logits = verify(
-                self.params, seq, self.caches, posv, active, *paged)
+            handle = lane.dispatch(
+                lambda: self.step_fn(self.params, tokens, caches, posv,
+                                     *paged),
+                label="decode", overlap_group=overlap_group)
+        ticket = DecodeTicket(handle=handle, oom_done=oom_done,
+                              lane=lane.name, overlap_group=overlap_group,
+                              t0=t0)
+        self._inflight = ticket
+        return ticket
+
+    def _record_decode(self, ticket: DecodeTicket, **meta) -> None:
+        if self.tracer is None:
+            return
+        self.tracer.record(
+            "decode", m=self.batch_slots, k=self.cfg.d_model,
+            n=self.cfg.d_ff, precision=self.cfg.precision,
+            **self._policy_tag(),
+            wall_s=time.perf_counter() - ticket.t0,
+            lane=ticket.lane, overlap_group=ticket.overlap_group,
+            meta={"n_active": self.n_active, **meta,
+                  "dispatch_to_ready_s": ticket.handle.dispatch_to_ready_s})
+
+    def join_decode(self, ticket: DecodeTicket) -> List[Request]:
+        """Join half of a decode step: wait on the ticket's event, then the
+        host-side token accounting. Records the ``decode`` event with the
+        lane and overlap group the step ran under. Returns the requests
+        that completed (paged: those the pool truncated first)."""
+        self._inflight = None
+        if ticket.handle is None:
+            return list(ticket.oom_done)
+        if ticket.spec_k > 1:
+            return self._join_spec(ticket)
+        nxt, logits, self.caches = ticket.handle.join()
+        nxt_np = nxt[:, 0].cpu().numpy()
+        self._record_decode(ticket)
         self.last_logits = logits
-        host = torch.cat([greedy, n_acc[:, None]], dim=1).cpu().numpy()
         self.tokens = nxt
-        done, trimmed = [], False
+        done = list(ticket.oom_done)
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            self.slot_pos[i] += 1
+            tok = int(nxt_np[i])
+            req.out.append(tok)
+            if self._maybe_finish(i, tok):
+                done.append(req)
+            elif self.paged:
+                # utilization accounting: positions written so far plus
+                # the pending next write
+                self.pager.note_tokens(i, int(self.slot_pos[i]) + 1)
+        if self.adaptive_k is not None:
+            self.adaptive_k.on_step()
+        return done
+
+    def _join_spec(self, ticket: DecodeTicket) -> List[Request]:
+        """Join half of a speculative step: commit each slot's accepted
+        prefix and the verify's token, record the acceptance, and (paged)
+        trim the candidate pages the verify already scrubbed. The caches
+        were rolled back in place before the host reads the counts."""
+        nxt, greedy, n_acc, self.caches, logits = ticket.handle.join()
+        k = ticket.spec_k
+        host = torch.cat([greedy, n_acc[:, None]], dim=1).cpu().numpy()
+        self._record_decode(ticket, spec_k=k)
+        self.last_logits = logits
+        self.tokens = nxt
+        done, trimmed = list(ticket.oom_done), False
         for i, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -622,6 +845,11 @@ class ServeSession:
             tot["committed"] += committed
             if self.adaptive_k is not None:
                 self.adaptive_k.observe(tenant, k - 1, acc)
+            if self.tracer is not None:
+                self.tracer.record(
+                    "spec", tenant=tenant,
+                    meta={"k": k, "drafted": k - 1, "accepted": acc,
+                          "committed": committed, "uid": req.uid})
             if not finished and self.paged:
                 # release the candidate pages the rejected writes grew
                 # into: the verify scrubbed them before n_acc was read
@@ -634,57 +862,19 @@ class ServeSession:
             self.adaptive_k.on_step()
         return done
 
-    def decode_once(self) -> List[Request]:
+    def decode_once(self, lane: Optional[cc.ExecutionLane] = None
+                    ) -> List[Request]:
         """One decode step over every slot (a speculative one when the
         session has a spec and its depth is above 1); returns the requests
-        that completed this step (paged: those the pool truncated
-        first)."""
-        if self.n_active == 0:
-            return []
-        k = self._next_spec_k()
-        done = []
-        if self.paged:
-            if k > 1 and self._spec_pages_short(k):
-                k = 1      # the pool cannot cover the batch: plain decode
-            done = self._grow_pages(k)
-        if self.n_active == 0:
-            return done
-        posv = torch.as_tensor(self.slot_pos.astype(np.int64),
-                               device=self.device)
-        if k > 1:
-            return done + self._spec_step(k, posv)
-        with self._policy_scope():
-            if self.paged:
-                nxt, logits, self.caches = self.step_fn(
-                    self.params, self.tokens, self.caches, posv,
-                    self._page_map)
-            else:
-                nxt, logits, self.caches = self.step_fn(
-                    self.params, self.tokens, self.caches, posv)
-        self.last_logits = logits
-        nxt_np = nxt[:, 0].cpu().numpy()     # waits for the step
-        self.tokens = nxt
-        for i, req in enumerate(self.slots):
-            if req is None:
-                continue
-            self.slot_pos[i] += 1
-            tok = int(nxt_np[i])
-            req.out.append(tok)
-            if self._maybe_finish(i, tok):
-                done.append(req)
-            elif self.paged:
-                # utilization accounting: positions written so far plus
-                # the pending next write
-                self.pager.note_tokens(i, int(self.slot_pos[i]) + 1)
-        if self.adaptive_k is not None:
-            self.adaptive_k.on_step()
-        return done
+        that completed this step. Dispatch immediately followed by join."""
+        return self.join_decode(self.dispatch_decode(lane))
 
     def _maybe_finish(self, slot: int, tok: int) -> bool:
         req = self.slots[slot]
         if tok == self.eos_id or len(req.out) >= req.max_new \
                 or self.slot_pos[slot] >= self.max_len:
             req.done = True
+            req.finish_t = time.perf_counter()
             self.completed.append(req)
             self.free_slot(slot)
             return True
@@ -692,6 +882,7 @@ class ServeSession:
 
     # -- single-queue request lifecycle ----------------------------------------
     def submit(self, req: Request):
+        req.submit_t = time.perf_counter()
         self.queue.append(req)
 
     def _admit_from_queue(self):

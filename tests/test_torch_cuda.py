@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, and sessions
+decoding on lanes (CUDA streams), on the card.
 
 Imports neither JAX nor the JAX package, so it runs on the machine with the
 GPU: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``. Without a
@@ -341,3 +342,105 @@ def test_cuda_split_launches_on_two_streams_keep_their_bits(kernel):
     torch.cuda.synchronize()
     for want, got in zip(alone, outs):
         assert all(_same_bits(g, want) for g in got)
+
+
+# ---------------------------------------------------------------------------
+# Lanes: sessions and the speculative draft on CUDA streams
+# ---------------------------------------------------------------------------
+
+def _lane_model():
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import RuntimeCfg
+    cfg = get_reduced("llama3-8b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, init_params(cfg, gen, device="cuda"), \
+        RuntimeCfg(use_pallas=True)
+
+
+def _lane_session(cfg, params, rt, uids, **kw):
+    import numpy as np
+    from repro_torch.runtime.serve_loop import Request, ServeSession
+    sess = ServeSession(params, cfg, batch_slots=2, max_len=64, rt=rt,
+                        policy="bf16:dense:hopper", device="cuda", **kw)
+    for uid in uids:
+        rng = np.random.default_rng(uid)
+        prompt = rng.integers(0, cfg.vocab_size, 5 + uid).astype(np.int32)
+        sess.admit(Request(uid=uid, prompt=prompt, max_new=12))
+    return sess
+
+
+@pytest.mark.cuda
+def test_cuda_lane_runs_its_thunk_on_its_stream():
+    _need_cuda()
+    from repro_torch.core import concurrency as tcc
+    lane = tcc.ExecutionLane("l0")
+    assert lane.device.type == "cuda" and lane.stream is not None
+    seen = []
+    x = torch.ones(256, 256, device="cuda")
+    h = lane.dispatch(lambda: seen.append(torch.cuda.current_stream())
+                      or x @ x)
+    assert seen == [lane.stream]
+    assert torch.cuda.current_stream() != lane.stream
+    assert torch.equal(h.join(), torch.full((256, 256), 256.0,
+                                            device="cuda"))
+    assert h.event is not None and h.event.query()
+    rep = tcc.characterize_streams(lambda i: (lambda: x @ x), 4)
+    assert rep.n_streams == 4 and len(rep.per_stream_s) == 4
+
+
+@pytest.mark.cuda
+def test_cuda_two_sessions_on_two_lanes_keep_their_bits():
+    """Two sessions decoding at once, each on a lane (stream) of its own,
+    give every token and logit bit of the two decoding one after the
+    other."""
+    _need_cuda()
+    from repro_torch.core import concurrency as tcc
+    cfg, params, rt = _lane_model()
+    alone = []
+    for uids in ((0, 1), (2, 3)):
+        sess = _lane_session(cfg, params, rt, uids)
+        logits = []
+        while sess.n_active:
+            sess.decode_once()
+            logits.append(sess.last_logits.clone())
+        alone.append(({r.uid: r.out for r in sess.completed}, logits))
+    a = _lane_session(cfg, params, rt, (0, 1))
+    b = _lane_session(cfg, params, rt, (2, 3))
+    lanes = [tcc.ExecutionLane(f"lane{i}") for i in range(2)]
+    together = [[], []]
+    while a.n_active or b.n_active:
+        tickets = [s.dispatch_decode(ln, overlap_group=0)
+                   for s, ln in zip((a, b), lanes)]
+        for i, (s, t) in enumerate(zip((a, b), tickets)):
+            s.join_decode(t)
+            if t.handle is not None:
+                together[i].append(s.last_logits.clone())
+    for (want_tok, want_logits), sess, got in zip(alone, (a, b), together):
+        assert {r.uid: r.out for r in sess.completed} == want_tok
+        assert len(got) == len(want_logits)
+        assert all(_same_bits(g, w) for g, w in zip(got, want_logits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft", ["bf16:dense:hopper", "fp8:dense:hopper"])
+def test_cuda_speculative_draft_on_its_own_lane_gives_the_plain_stream(
+        draft):
+    """The draft chain runs on the session's draft lane and writes the
+    cache in place; the verify's stream waits on the draft's event, so the
+    committed tokens are the plain greedy stream."""
+    _need_cuda()
+    cfg, params, rt = _lane_model()
+    plain = _lane_session(cfg, params, rt, (0, 1))
+    plain.run()
+    spec = _lane_session(cfg, params, rt, (0, 1),
+                         speculative={"k": 3, "draft_policy": draft})
+    while spec.n_active:
+        t = spec.dispatch_decode()
+        if t.spec_k > 1:
+            assert t.draft_handle.event is not None
+            assert t.draft_handle.lane == "draft" != t.lane
+        spec.join_decode(t)
+    assert {r.uid: r.out for r in spec.completed} == \
+        {r.uid: r.out for r in plain.completed}
+    assert spec.spec_totals[""]["steps"] > 0

@@ -120,13 +120,12 @@ def test_session_needs_a_device_on_a_cpu_only_machine():
 
 
 def test_unported_session_modes_raise():
-    """Sampling and the policy resolver are not ported (the paged cache and
-    the slot handoff are: test_torch_serve_paged.py; speculation is:
-    test_torch_speculative.py)."""
-    for kw in ({"policy": "auto"}, {"temperature": 0.7}):
-        with pytest.raises(NotImplementedError):
-            tsl.ServeSession({}, CFG, batch_slots=1, max_len=8,
-                             device="cpu", **kw)
+    """Sampling is not ported (the policy resolver is:
+    test_torch_runtime_policy.py; the paged cache and the slot handoff:
+    test_torch_serve_paged.py; speculation: test_torch_speculative.py)."""
+    with pytest.raises(NotImplementedError):
+        tsl.ServeSession({}, CFG, batch_slots=1, max_len=8, device="cpu",
+                         temperature=0.7)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -135,7 +134,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.bridge, repro_torch.core.sparsity, "
             "repro_torch.kernels.sparse24_matmul, repro_torch.core.paging, "
             "repro_torch.kernels.paged_attention, "
-            "repro_torch.core.speculative\n"
+            "repro_torch.core.speculative, repro_torch.core.concurrency, "
+            "repro_torch.core.execution, repro_torch.kernels.registry, "
+            "repro_torch.runtime.telemetry, repro_torch.runtime.scheduler, "
+            "repro_torch.runtime.metrics, repro_torch.runtime.controller, "
+            "repro_torch.runtime.server, repro_torch.runtime.partition, "
+            "repro_torch.runtime.traceview, repro_torch.runtime.workload, "
+            "repro_torch.launch.loadgen\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")
