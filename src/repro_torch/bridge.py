@@ -61,25 +61,29 @@ def _tree(tree, device):
     return to_torch(tree, device)
 
 
-def _check_pattern(cfg, what: str) -> None:
-    if cfg.superlayer_pattern != ("attn_dense",):
-        raise NotImplementedError(
-            f"bridge for {what} of block pattern {cfg.superlayer_pattern}: "
-            "only attn_dense stacks are ported so far")
+def _unstack(tree, cfg, one):
+    """Layer ``s * len(pat) + i`` of the port is super-layer ``s`` of the
+    reference's block ``b{i}``: ``one(block_tree, s)`` per layer, in
+    layer order."""
+    from repro_torch.models.transformer import check_supported
+    check_supported(cfg)
+    n_pat = len(cfg.superlayer_pattern)
+    return [one(tree["layers"][f"b{li % n_pat}"], li // n_pat)
+            for li in range(cfg.num_superlayers * n_pat)]
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
     """The JAX param tree (numpy leaves) → the port's params.
 
-    ``tree["layers"]["b0"]`` holds the ``attn_dense`` block stacked over
-    ``cfg.num_superlayers``; it becomes ``params["layers"][i]``."""
-    _check_pattern(cfg, "params")
-    block = tree["layers"]["b0"]
-    n = cfg.num_superlayers
-
-    def layer(i, sub):
+    ``tree["layers"]["b{i}"]`` holds block ``i`` of the super-layer
+    pattern stacked over ``cfg.num_superlayers``; super-layer ``s`` of it
+    becomes ``params["layers"][s * len(pattern) + i]``. A MoE block's
+    ``moe`` subtree comes along: the f32 router, the expert stacks (4-D
+    ``(n_super, E, d, f)`` there, 3-D ``(E, d, f)`` here) and the shared
+    expert."""
+    def layer(sub, i):
         if isinstance(sub, dict):
-            return {k: layer(i, v) for k, v in sub.items()}
+            return {k: layer(v, i) for k, v in sub.items()}
         if isinstance(sub, tuple) and hasattr(sub, "meta"):   # packed 2:4
             return PackedWeight(to_torch(np.asarray(sub.values)[i], device),
                                 to_torch(np.asarray(sub.meta)[i], device))
@@ -89,7 +93,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
         "embed": to_torch(tree["embed"], device),
         "head": to_torch(tree["head"], device),
         "final_norm": to_torch(tree["final_norm"], device),
-        "layers": [layer(i, block) for i in range(n)],
+        "layers": _unstack(tree, cfg, layer),
     }
 
 
@@ -97,12 +101,12 @@ def caches_from_numpy(tree: Dict[str, Any], cfg,
                       device=None) -> List[Dict[str, torch.Tensor]]:
     """A JAX serving cache (numpy leaves) → the port's per-layer list.
 
-    The dense cache ``{"layers": {"b0": {"k": (n_super, B, S, kvh, hd),
-    "v": ..., "pos": (n_super, B, S)}}}`` and the paged one (pools
-    ``(n_super, pages+1, page_size, ...)``) both stack layers on axis 0;
-    layer i becomes ``{"k", "v", "pos"}`` of the rest, bit for bit."""
-    _check_pattern(cfg, "caches")
-    block = tree["layers"]["b0"]
-    return [{key: to_torch(np.asarray(block[key])[i], device)
-             for key in ("k", "v", "pos")}
-            for i in range(cfg.num_superlayers)]
+    The dense cache ``{"layers": {"b{i}": {"k": (n_super, B, S, kvh, hd),
+    "v": ..., "pos": (n_super, B, S)}}}`` (S the window's rows for a local
+    block) and the paged one (pools ``(n_super, pages+1, page_size, ...)``
+    for the pooled blocks) stack super-layers on axis 0; the port's layer
+    ``s * len(pattern) + i`` gets ``{"k", "v", "pos"}`` of super-layer
+    ``s`` of block ``i``, bit for bit."""
+    return _unstack(tree, cfg, lambda block, i: {
+        key: to_torch(np.asarray(block[key])[i], device)
+        for key in ("k", "v", "pos")})

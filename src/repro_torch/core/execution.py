@@ -246,6 +246,30 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
     return be.dense(x, w, out_dtype=out_dtype, **pol.blocks)
 
 
+# The backends whose expert GEMMs run batched on kernel A (the reference's
+# ``backend.startswith("pallas")``).
+KERNEL_BACKENDS = ("hopper", "hopper_sparse24")
+
+
+def matmul_experts(x: torch.Tensor, w: torch.Tensor,
+                   policy: Optional[ExecutionPolicy] = None, *,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Per-expert ``x[e] @ w[e]``: x (E, M, K), w (E, K, N) → (E, M, N),
+    each expert's product as :func:`matmul` computes it alone. On kernel A
+    (fp8, or bf16 on ``hopper``) the E products are one launch
+    (``registry.hopper_experts``). Elsewhere each expert goes through
+    :func:`matmul`, as the reference's unrolled per-expert loop does:
+    under ``hopper_sparse24`` that is the dense entry, which prunes and
+    packs each expert's weight per call, as ``pallas_sparse24``'s does."""
+    pol = policy or get_default_policy()
+    if pol.backend == "hopper" or (pol.backend in KERNEL_BACKENDS
+                                   and pol.precision == "fp8"):
+        return registry.hopper_experts(x, w, precision=pol.precision,
+                                       out_dtype=out_dtype)
+    return torch.stack([matmul(x[e], w[e], pol, out_dtype=out_dtype)
+                        for e in range(w.shape[0])])
+
+
 # ---------------------------------------------------------------------------
 # Block-shape autotune cache (Table 3: preferred tile is precision-dependent)
 # ---------------------------------------------------------------------------

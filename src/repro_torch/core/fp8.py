@@ -43,6 +43,19 @@ def quantize_weight_static(w: torch.Tensor, dtype=E4M3
     return (w.float() * s).to(dtype), (1.0 / s).float()
 
 
+def quantize_stack(w: torch.Tensor, dtype=E4M3
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_weight_static` of each ``w[e]`` at once (the
+    reference vmaps it over a MoE layer's experts): returns (w_q, inv_scale
+    (E,)), each member's bytes and scale bit-equal to its own call. A
+    member of zeros (an expert no token reached) takes the 1e-12 amax
+    floor: its bytes are zeros and its scale finite."""
+    amax = torch.clamp_min(w.abs().flatten(1).amax(dim=1).float(), 1e-12)
+    s = torch.full_like(amax, fp8_max(dtype)) / amax
+    lead = (-1,) + (1,) * (w.dim() - 1)
+    return (w.float() * s.view(lead)).to(dtype), (1.0 / s).float()
+
+
 def _f32_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(…, K) × (K, N) with f32 operands and f32 accumulation."""
     return torch.matmul(a.float(), b.float())

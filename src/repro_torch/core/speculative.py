@@ -144,8 +144,13 @@ def make_draft_step(cfg, rt, draft_policy: ex.ExecutionPolicy,
       verify's own writes.
 
     Rows at or past ``max_len`` are dropped (dense) or go to the trash page
-    (paged), as in the verify. So the cache after a speculative step is bit
-    for bit the cache of the plain steps it committed
+    (paged), as in the verify. A rolling window (``attn_local``) is
+    different: draft step ``j`` overwrites row ``(pos + j) % window``, the
+    position ``window`` before its own, which the verify's first steps
+    still attend to. So the draft keeps the rows it overwrites there and
+    puts them back, newest first, when its chain ends
+    (``transformer.save_window_rows``). So the cache after a speculative
+    step is bit for bit the cache of the plain steps it committed
     (``tests/test_torch_speculative.py``), with no copy of the cache."""
     from repro_torch.models import transformer as tf
     cfg, rt = ex.apply_policy(cfg, rt, draft_policy)
@@ -156,7 +161,10 @@ def make_draft_step(cfg, rt, draft_policy: ex.ExecutionPolicy,
         posb = posb.expand(b) if posb.dim() == 0 else posb
         tok = tokens.to(torch.int32)
         seq = [tok]
+        win = tf.window_layers(caches, cfg)
+        log = []
         for j in range(n_draft):
+            log.append(tf.save_window_rows(win, posb + j))
             if paged:
                 logits, caches = tf.paged_decode_step(
                     params, tok, caches, posb + j, page_map, cfg, rt)
@@ -165,6 +173,7 @@ def make_draft_step(cfg, rt, draft_policy: ex.ExecutionPolicy,
                                                 posb + j, cfg, rt)
             tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
             seq.append(tok)
+        tf.restore_window_rows(win, log)
         return torch.cat(seq, dim=1)
 
     if paged:

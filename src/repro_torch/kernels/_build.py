@@ -37,7 +37,10 @@ SIGNATURES = {
     # ... the operands and shapes, then the plan (kernels/gemm_plan.py):
     # tile, splits, steps per split, workspace, counters; then the stream
     "gemm": {"repro_gemm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _P, _P, _P)},
+                            _I, _I, _I, _P, _P, _P),
+             # the same with the member count before the shapes
+             "repro_gemm_batched": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _P, _P, _P)},
     "flash_attention": {
         "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _P)},

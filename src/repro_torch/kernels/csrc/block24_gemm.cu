@@ -60,7 +60,8 @@ struct Block24Op {
   // columns of a step come from 64 dense columns of one kept block, one
   // copy (past K/2 the copy starts past K, which TMA fills with zeros).
   __device__ __forceinline__ void load(int k0, unsigned char* st, int m0,
-                                       int n0, int tid, uint64_t* bar) const {
+                                       int n0, int /* one member */, int tid,
+                                       uint64_t* bar) const {
     unsigned char* bs = st + round1024(C::A_BYTES);
     const int Kh = K / 2;
     if (tid == 0) {

@@ -47,6 +47,12 @@
 //   a warp's diagonal are skipped.
 // - Longer prompts: one block per SM (136 KB of shared memory), four tiles
 //   per step; at S = 512 this is ~3x cuDNN's wgmma kernel (PERF.md).
+// - Head dim 256 (gemma3): the ring of eight K/V stages would need 278 KB
+//   of shared memory, and Q's fragments (64 registers) beside the f32
+//   output accumulator (128) would spill. So at HD 256 a block has two kv
+//   groups (4 warps, 4 stages, 144 KB) and each warp reads its Q fragments
+//   from shared memory at every k step instead of keeping them; the tiles,
+//   the masks and the fixed fold order are those of the smaller heads.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -58,11 +64,20 @@ namespace {
 
 constexpr int BQ = 32;            // query rows per block: 16 per row group
 constexpr int BKV = 32;           // kv rows per tile
-constexpr int KVG = 4;            // kv groups: warps that share out kv tiles
-constexpr int NW = 2 * KVG;       // warps: 2 row groups x KVG kv groups
-constexpr int NT = 32 * NW;
-constexpr int STAGES = 2 * KVG;   // ring: this step's tiles and the next's
 constexpr float NEG_INF = -1e30f;
+
+// Per head dim: kv groups (warps that share out kv tiles; 2 x KVG warps,
+// two row groups), the ring (this step's tiles and the next's) and whether
+// Q's fragments stay in registers for the whole walk.
+template <int HD>
+struct Shape {
+  static constexpr int KVG = HD > 128 ? 2 : 4;
+  static constexpr int NW = 2 * KVG;
+  static constexpr int NT = 32 * NW;
+  static constexpr int STAGES = 2 * KVG;
+  static constexpr bool Q_IN_REGS = HD <= 128;
+  static constexpr size_t SMEM = (size_t)(BQ + STAGES * 2 * BKV) * HD * 2;
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -70,7 +85,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Shape<HD>::NT)
 flash_kernel(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v,
@@ -81,6 +96,9 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = HD / 16;     // k steps of Q K^T
   constexpr int NS = BKV / 8;     // 8-column blocks of a score tile
   constexpr int NO = HD / 8;      // 8-column blocks of the output
+  constexpr int KVG = Shape<HD>::KVG, NT = Shape<HD>::NT;
+  constexpr int STAGES = Shape<HD>::STAGES;
+  constexpr bool Q_IN_REGS = Shape<HD>::Q_IN_REGS;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* Qs = smem;                   // BQ rows; later the output
   unsigned char* ring = smem + BQ * RB;       // STAGES x (K, V) tiles
@@ -127,7 +145,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
   const int row0 = 16 * rg;                   // this warp's rows in the tile
   const int qfirst = q0 + row0, qlast = qfirst + 15;
   const int qlo = qfirst + lane / 4;          // its rows qlo and qlo + 8
-  uint32_t qf[KS][4];
+  uint32_t qf[Q_IN_REGS ? KS : 1][4];
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -141,9 +159,9 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
     issue(i + 1, 1);
     cp_async_wait<3>();           // step i's K tiles (and Q) have landed
     __syncthreads();
-    if (i == 0) {
+    if (Q_IN_REGS && i == 0) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
+      for (int ks = 0; ks < (Q_IN_REGS ? KS : 0); ++ks)
         ldmatrix_x4(qf[ks], Qs + piece_off<CH>(row0 + li + 8 * (lj & 1),
                                                2 * ks + (lj >> 1)));
     }
@@ -160,15 +178,20 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t(&a)[4] = qf[Q_IN_REGS ? ks : 0];
+        if (!Q_IN_REGS)
+          ldmatrix_x4(a, Qs + piece_off<CH>(row0 + li + 8 * (lj & 1),
+                                            2 * ks + (lj >> 1)));
 #pragma unroll
         for (int p = 0; p < NS / 2; ++p) {
           uint32_t bk[4];
           ldmatrix_x4(bk, Ks + piece_off<CH>(16 * p + li + 8 * (lj >> 1),
                                              2 * ks + (lj & 1)));
-          mma_16816(s[2 * p], qf[ks], bk[0], bk[1]);
-          mma_16816(s[2 * p + 1], qf[ks], bk[2], bk[3]);
+          mma_16816(s[2 * p], a, bk[0], bk[1]);
+          mma_16816(s[2 * p + 1], a, bk[2], bk[3]);
         }
+      }
       // lane holds rows qlo (e < 2) and qlo + 8, columns 8n + 2 (lane % 4)
       // + e % 2; only a tile on the diagonal or past Skv needs the mask
       if ((causal && k0 + BKV - 1 > qfirst) || k0 + BKV > Skv) {
@@ -325,7 +348,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int KVH, int Sq, int Skv, int causal, cudaStream_t stream) {
-  const size_t smem = (size_t)(BQ + STAGES * 2 * BKV) * HD * 2;
+  const size_t smem = Shape<HD>::SMEM;
   static size_t granted = 48 * 1024;  // this instantiation's smem limit
   if (smem > granted) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -337,7 +360,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const float scale_log2 = static_cast<float>(
       1.4426950408889634 / sqrt(static_cast<double>(HD)));
   dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  flash_kernel<HD><<<grid, NT, smem, stream>>>(
+  flash_kernel<HD><<<grid, Shape<HD>::NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,
       KVH, Sq, Skv, causal, scale_log2);
@@ -347,7 +370,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 }  // namespace
 
 // q (B, H, Sq, HD), k/v (B, KVH, Skv, HD), o (B, H, Sq, HD); all bf16,
-// contiguous and 16-byte aligned; HD in {32, 64, 128}. Returns
+// contiguous and 16-byte aligned; HD in {32, 64, 128, 256}. Returns
 // cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int H,
@@ -360,6 +383,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     case 32: return launch<32>(q, k, v, o, B, H, KVH, Sq, Skv, causal, s);
     case 64: return launch<64>(q, k, v, o, B, H, KVH, Sq, Skv, causal, s);
     case 128: return launch<128>(q, k, v, o, B, H, KVH, Sq, Skv, causal, s);
+    case 256: return launch<256>(q, k, v, o, B, H, KVH, Sq, Skv, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

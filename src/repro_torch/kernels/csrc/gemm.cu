@@ -28,6 +28,12 @@
 // zero-fills past the edges, rows that are not 16-byte aligned take element
 // loads (the JAX backend instead fell back to XLA whenever a block was not a
 // multiple of 8).
+// Expert stacks (the reference vmaps its GEMM over a MoE layer's experts,
+// one pallas_call with an extra grid axis): repro_gemm_batched takes E
+// products of one shape, A (E, M, K) @ B (E, K, N) -> C (E, M, N), in one
+// launch, the member on the grid's z axis beside the K splits and both
+// operands addressed through 3-D tensor maps. Each member's plan and sums
+// are those of its own (M, N, K) product.
 // Later work: native fp8 wgmma (needs a K-major copy of the weight and f32
 // promotion of the partial sums), a persistent grid with the split-K
 // fix-up overlapped, TMA multicast of the activation tile across a cluster.
@@ -57,31 +63,33 @@ struct DenseOp {
   int M, N, K;
   bool tma_a, tma_b;
 
+  // k0 .. k0 + BK of batch member e
   __device__ __forceinline__ void load(int k0, unsigned char* st, int m0,
-                                       int n0, int tid, uint64_t* bar) const {
+                                       int n0, int e, int tid,
+                                       uint64_t* bar) const {
     unsigned char* sb = st + B_OFF;
     if (tid == 0) {
       mbar_expect(bar, (tma_a ? RA_BYTES : 0) + (tma_b ? RB_BYTES : 0));
-      if (tma_a) tma_2d(st, &ma, k0, m0, bar);
+      if (tma_a) tma_3d(st, &ma, k0, m0, e, bar);
       if (tma_b) {
         if constexpr (RAW)
-          tma_2d(sb, &mb, n0, k0, bar);
+          tma_3d(sb, &mb, n0, k0, e, bar);
         else
 #pragma unroll
           for (int h = 0; h < C::BN / 64; ++h)
-            tma_2d(sb + h * C::BK * 128, &mb, n0 + 64 * h, k0, bar);
+            tma_3d(sb + h * C::BK * 128, &mb, n0 + 64 * h, k0, e, bar);
       }
     }
     if (!tma_a)
       load_tile<T, C::BM, C::BK, C::NT>(
-          a, M, K, m0, k0,
+          a + (size_t)e * M * K, M, K, m0, k0,
           [=](int r, int c) {
             return RAW ? st + r * C::BK + c : st + a_off(r, c);
           },
           tid);
     if (!tma_b)
       load_tile<T, C::BK, C::BN, C::NT>(
-          b, K, N, k0, n0,
+          b + (size_t)e * K * N, K, N, k0, n0,
           [=](int r, int c) {
             return RAW ? sb + r * C::BN + c : sb + b_off<C::BK>(r, c);
           },
@@ -125,12 +133,12 @@ struct DenseOp {
   }
 };
 
-// The operands' tensor maps where their rows are 16-byte aligned, then the
-// launch.
+// The operands' tensor maps (3-D, `batch` matrices deep) where their rows
+// are 16-byte aligned, then the launch.
 template <int IT, class C>
-int run(const void* a, const void* b, void* c, int M, int N, int K,
-        int out_type, int vec_a, int vec_b, int splits, int per, void* ws,
-        void* counters, cudaStream_t s) {
+int run(const void* a, const void* b, void* c, int batch, int M, int N,
+        int K, int out_type, int vec_a, int vec_b, int splits, int per,
+        void* ws, void* counters, cudaStream_t s) {
   typedef DenseOp<IT, C> Op;
   Op op{};
   op.a = static_cast<const typename Op::T*>(a);
@@ -140,25 +148,45 @@ int run(const void* a, const void* b, void* c, int M, int N, int K,
   op.K = K;
   // bf16: 64-column boxes in the 128-byte swizzle; fp8: whole raw tiles
   op.tma_a = vec_a && encode_tiles(&op.ma, a, Op::ES, M, K, C::BM,
-                                   Op::RAW ? C::BK : 64, !Op::RAW);
+                                   Op::RAW ? C::BK : 64, !Op::RAW, batch);
   op.tma_b = vec_b && encode_tiles(&op.mb, b, Op::ES, K, N, C::BK,
-                                   Op::RAW ? C::BN : 64, !Op::RAW);
+                                   Op::RAW ? C::BN : 64, !Op::RAW, batch);
   if ((vec_a && !op.tma_a) || (vec_b && !op.tma_b))
     return static_cast<int>(cudaErrorNotSupported);
-  return launch<C>(op, c, ws, counters, M, N, K, out_type, splits, per, s);
+  return launch<C>(op, c, ws, counters, M, N, K, out_type, splits, per, s,
+                   batch);
 }
 
 template <int IT>
-int dispatch(const void* a, const void* b, void* c, int M, int N, int K,
-             int out_type, int vec_a, int vec_b, int tile, int splits,
+int dispatch(const void* a, const void* b, void* c, int batch, int M, int N,
+             int K, int out_type, int vec_a, int vec_b, int tile, int splits,
              int per, void* ws, void* counters, cudaStream_t s) {
   if (tile == TILE_SMALL)
-    return run<IT, Small>(a, b, c, M, N, K, out_type, vec_a, vec_b, splits,
-                          per, ws, counters, s);
+    return run<IT, Small>(a, b, c, batch, M, N, K, out_type, vec_a, vec_b,
+                          splits, per, ws, counters, s);
   if (tile == TILE_WIDE)
-    return run<IT, Wide>(a, b, c, M, N, K, out_type, vec_a, vec_b, splits,
-                         per, ws, counters, s);
+    return run<IT, Wide>(a, b, c, batch, M, N, K, out_type, vec_a, vec_b,
+                         splits, per, ws, counters, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int by_type(const void* a, const void* b, void* c, int batch, int M, int N,
+            int K, int in_type, int out_type, int vec_a, int vec_b, int tile,
+            int splits, int per, void* ws, void* counters, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (in_type) {
+    case IN_BF16:
+      return dispatch<IN_BF16>(a, b, c, batch, M, N, K, out_type, vec_a,
+                               vec_b, tile, splits, per, ws, counters, s);
+    case IN_E4M3:
+      return dispatch<IN_E4M3>(a, b, c, batch, M, N, K, out_type, vec_a,
+                               vec_b, tile, splits, per, ws, counters, s);
+    case IN_E5M2:
+      return dispatch<IN_E5M2>(a, b, c, batch, M, N, K, out_type, vec_a,
+                               vec_b, tile, splits, per, ws, counters, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -172,18 +200,20 @@ extern "C" int repro_gemm(const void* a, const void* b, void* c, int M, int N,
                           int K, int in_type, int out_type, int vec_a,
                           int vec_b, int tile, int splits, int per, void* ws,
                           void* counters, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (in_type) {
-    case IN_BF16:
-      return dispatch<IN_BF16>(a, b, c, M, N, K, out_type, vec_a, vec_b, tile,
-                               splits, per, ws, counters, s);
-    case IN_E4M3:
-      return dispatch<IN_E4M3>(a, b, c, M, N, K, out_type, vec_a, vec_b, tile,
-                               splits, per, ws, counters, s);
-    case IN_E5M2:
-      return dispatch<IN_E5M2>(a, b, c, M, N, K, out_type, vec_a, vec_b, tile,
-                               splits, per, ws, counters, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_type(a, b, c, 1, M, N, K, in_type, out_type, vec_a, vec_b, tile,
+                 splits, per, ws, counters, stream);
+}
+
+// repro_gemm over `batch` members of one shape, contiguous one after
+// another in a (batch, M, K), b (batch, K, N) and c (batch, M, N), in one
+// launch. The plan is the members' own; with splits > 1, ws holds batch *
+// splits * M * N floats and counters batch ints per output tile, all 0.
+extern "C" int repro_gemm_batched(const void* a, const void* b, void* c,
+                                  int batch, int M, int N, int K, int in_type,
+                                  int out_type, int vec_a, int vec_b,
+                                  int tile, int splits, int per, void* ws,
+                                  void* counters, void* stream) {
+  if (batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return by_type(a, b, c, batch, M, N, K, in_type, out_type, vec_a, vec_b,
+                 tile, splits, per, ws, counters, stream);
 }

@@ -72,7 +72,8 @@ struct Sparse24Op {
   bool tma_x, tma_w;
 
   __device__ __forceinline__ void load(int k0, unsigned char* st, int m0,
-                                       int n0, int tid, uint64_t* bar) const {
+                                       int n0, int /* one member */, int tid,
+                                       uint64_t* bar) const {
     unsigned char* vs = st + V_OFF;
     unsigned char* ms = st + M_OFF;
     if (tid == 0) {

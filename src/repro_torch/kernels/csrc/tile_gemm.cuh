@@ -41,6 +41,12 @@
 //   atomics: the same plan gives the same bits on every run. Each stream
 //   has a workspace and counters of its own (gemm_plan.StreamScratch), so
 //   launches on two streams never mix their partial sums.
+// * Batches: a launch may carry `batch` independent products of one shape
+//   (kernel A's expert stacks, A (E, M, K) @ B (E, K, N) -> C (E, M, N)).
+//   The grid's z axis is batch x splits, each batch index with its own
+//   slices of C, the workspace and the counters; its operands are
+//   addressed through 3-D tensor maps, so TMA zero-fills at each member's
+//   own edges and never reads a neighbour's rows.
 #pragma once
 
 #include <cuda.h>
@@ -138,7 +144,9 @@ inline EncodeTiledFn encode_fn() {
 // box_rows x box_cols tiles. Needs a 16-byte aligned base, cols * esize %
 // 16 == 0 and box_cols * esize % 16 == 0. With `swizzle` (box rows of
 // exactly 128 bytes) a tile lands in the 128-byte swizzle of sw128 below,
-// else row-major. Past the edges: zeros.
+// else row-major. Past the edges: zeros. With `depth` >= 1 the map is 3-D,
+// `depth` such matrices one after another (boxes one matrix deep, copied
+// by tma_3d); with 0 it is 2-D (tma_2d).
 //
 // A map is a pure function of these arguments, so the last map of each
 // argument set is kept in a small table (a decode step encodes the same
@@ -146,14 +154,15 @@ inline EncodeTiledFn encode_fn() {
 // table is locked: callers may come from more than one host thread.
 inline bool encode_tiles(CUtensorMap* m, const void* base, int esize,
                          int rows, int cols, int box_rows, int box_cols,
-                         bool swizzle) {
+                         bool swizzle, int depth = 0) {
   struct Key {
     const void* base;
-    int esize, rows, cols, box_rows, box_cols, swizzle;
+    int esize, rows, cols, box_rows, box_cols, swizzle, depth;
     bool operator==(const Key& o) const {
       return base == o.base && esize == o.esize && rows == o.rows &&
              cols == o.cols && box_rows == o.box_rows &&
-             box_cols == o.box_cols && swizzle == o.swizzle;
+             box_cols == o.box_cols && swizzle == o.swizzle &&
+             depth == o.depth;
     }
   };
   constexpr int SLOTS = 4096;
@@ -161,9 +170,9 @@ inline bool encode_tiles(CUtensorMap* m, const void* base, int esize,
   static CUtensorMap maps[SLOTS];
   static bool used[SLOTS];
   static std::mutex lock;
-  const Key key{base, esize, rows, cols, box_rows, box_cols, swizzle};
+  const Key key{base, esize, rows, cols, box_rows, box_cols, swizzle, depth};
   size_t h = reinterpret_cast<uintptr_t>(base) >> 4;
-  for (int v : {esize, rows, cols, box_rows, box_cols, int(swizzle)})
+  for (int v : {esize, rows, cols, box_rows, box_cols, int(swizzle), depth})
     h = h * 1000003u ^ static_cast<size_t>(v);
   const int slot = static_cast<int>(h % SLOTS);
   std::lock_guard<std::mutex> guard(lock);
@@ -173,13 +182,15 @@ inline bool encode_tiles(CUtensorMap* m, const void* base, int esize,
   }
   const EncodeTiledFn fn = encode_fn();
   if (!fn) return false;
-  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  const cuuint64_t strides[1] = {cuuint64_t(cols) * esize};
-  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows),
+                              cuuint64_t(depth > 0 ? depth : 1)};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * esize,
+                                 cuuint64_t(rows) * cols * esize};
+  const cuuint32_t box[3] = {cuuint32_t(box_cols), cuuint32_t(box_rows), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
   if (fn(m, esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
                        : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-         2, const_cast<void*>(base), dims, strides, box, estr,
+         depth > 0 ? 3 : 2, const_cast<void*>(base), dims, strides, box, estr,
          CU_TENSOR_MAP_INTERLEAVE_NONE,
          swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -238,6 +249,16 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box at (c0, c1) of matrix c2 of a 3-D map (encode_tiles' depth).
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // One 16-byte chunk by element loads: `valid` elements of T from p, zeros
 // after them.
 template <class T>
@@ -290,6 +311,19 @@ struct Out {
   float* ws;       // (splits, M, N) f32 partial sums; unused with one split
   int* counters;   // one per output tile, 0 between launches
   int M, N, out_type, splits;
+
+  // Batch member e's C, workspace and counters (`tiles` per member).
+  __device__ __forceinline__ Out member(int e, int tiles) const {
+    Out o = *this;
+    const size_t mn = (size_t)M * N;
+    o.c = static_cast<unsigned char*>(c) +
+          e * mn * (out_type == OUT_F32 ? 4 : 2);
+    if (splits > 1) {
+      o.ws = ws + (size_t)e * splits * mn;
+      o.counters = counters + (size_t)e * tiles;
+    }
+    return o;
+  }
 
   __device__ __forceinline__ void store(size_t o, float v) const {
     if (out_type == OUT_F32)
@@ -624,17 +658,22 @@ __device__ __forceinline__ void finish_split(const Out& out, int m0, int n0,
   }
 }
 
-// Block (blockIdx.x, blockIdx.y) computes output tile (m0, n0) over K steps
-// [split * per, (split + 1) * per) of the k_extent-deep product.
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) computes output tile (m0, n0)
+// of batch member e = blockIdx.z / splits over K steps [split * per,
+// (split + 1) * per) of the k_extent-deep product, split = blockIdx.z %
+// splits.
 template <class C, class Op>
 __global__ void __launch_bounds__(C::NT)
-tile_kernel(const __grid_constant__ Op op, const Out out, int k_extent,
+tile_kernel(const __grid_constant__ Op op, const Out batch_out, int k_extent,
             int per) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // TMA's 128-byte swizzle wants 1024-byte aligned tiles
   unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
   __shared__ __align__(8) uint64_t full[C::STAGES];
-  const int tid = threadIdx.x, split = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int split = blockIdx.z % batch_out.splits;
+  const int e = blockIdx.z / batch_out.splits;
+  const Out out = batch_out.member(e, gridDim.x * gridDim.y);
   const int m0 = blockIdx.x * C::BM, n0 = blockIdx.y * C::BN;
   const int k_begin = split * per * C::BK;
   const int k_end = min(k_extent, k_begin + per * C::BK);
@@ -661,7 +700,7 @@ tile_kernel(const __grid_constant__ Op op, const Out out, int k_extent,
 #pragma unroll
   for (int s = 0; s < AHEAD; ++s)
     if (s < nsteps)
-      op.load(k_begin + s * C::BK, stage(s), m0, n0, tid, &full[s]);
+      op.load(k_begin + s * C::BK, stage(s), m0, n0, e, tid, &full[s]);
   for (int i = 0; i < nsteps; ++i) {
     mbar_wait(&full[i % C::STAGES], (i / C::STAGES) & 1);  // step i landed
     if constexpr (C::WIDE) fence_proxy_async();
@@ -669,7 +708,7 @@ tile_kernel(const __grid_constant__ Op op, const Out out, int k_extent,
                       // refilled next has no reader left
     const int nx = i + AHEAD;
     if (nx < nsteps)
-      op.load(k_begin + nx * C::BK, stage(nx), m0, n0, tid,
+      op.load(k_begin + nx * C::BK, stage(nx), m0, n0, e, tid,
               &full[nx % C::STAGES]);
     const unsigned char *A, *B;
     const int wrote = op.operands(
@@ -688,13 +727,15 @@ tile_kernel(const __grid_constant__ Op op, const Out out, int k_extent,
 }
 
 // Launches Op's kernel with the plan (splits ranges of `per` BK steps,
-// every one non-empty). Sets the dynamic shared-memory limit of each
-// instantiation once (the port drives one card). Returns the CUDA status.
+// every one non-empty) for `batch` members. Sets the dynamic shared-memory
+// limit of each instantiation once (the port drives one card). Returns the
+// CUDA status.
 template <class C, class Op>
 int launch(const Op& op, void* c, void* ws, void* counters, int M, int N,
            int k_extent, int out_type, int splits, int per,
-           cudaStream_t stream) {
+           cudaStream_t stream, int batch = 1) {
   const bool plan_ok =
+      batch >= 1 && (long long)batch * splits <= 65535 &&
       splits >= 1 && per >= 1 &&
       (long long)splits * per * C::BK >= k_extent &&
       ((long long)(splits - 1) * per * C::BK < k_extent || splits == 1) &&
@@ -711,7 +752,8 @@ int launch(const Op& op, void* c, void* ws, void* counters, int M, int N,
                 M, N, out_type, splits};
   // M tiles fastest: blocks that share a weight tile run together, so the
   // second reads it from L2
-  const dim3 grid((M + C::BM - 1) / C::BM, (N + C::BN - 1) / C::BN, splits);
+  const dim3 grid((M + C::BM - 1) / C::BM, (N + C::BN - 1) / C::BN,
+                  batch * splits);
   tile_kernel<C, Op><<<grid, C::NT, SMEM, stream>>>(op, out, k_extent, per);
   return static_cast<int>(cudaGetLastError());
 }

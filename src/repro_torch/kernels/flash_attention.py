@@ -10,7 +10,8 @@ the kernel masks ragged tiles.
 
 The kernel runs both products on the tensor cores (bf16 in, f32 sums; P
 rounded to bf16 for P·V), one block per 32 query rows of one head, its kv
-tiles shared out between four groups of warps and folded in a fixed order:
+tiles shared out between four groups of warps (two at head_dim 256, whose
+ring and accumulators are twice as large) and folded in a fixed order:
 :func:`describe_grid` gives its launch shape.
 
 ``flash_attention`` launches the kernel for CUDA tensors and raises on what
@@ -27,17 +28,23 @@ from repro_torch.kernels import _build
 # Launches of the CUDA kernel since the last reset (chip_smoke.py reads it).
 LAUNCHES = 0
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 NEG_INF = -1e30
-# Query rows per block and threads per block (csrc/flash_attention.cu BQ, NT)
-BLOCK_Q, BLOCK_THREADS = 32, 256
+# Query rows per block (csrc/flash_attention.cu BQ)
+BLOCK_Q = 32
 
 
-def describe_grid(batch: int, heads: int, sq: int) -> str:
+def block_threads(hd: int) -> int:
+    """Threads per block (csrc/flash_attention.cu ``Shape<HD>::NT``): two
+    row groups of four kv groups of warps, two kv groups above hd 128."""
+    return 32 * 2 * (2 if hd > 128 else 4)
+
+
+def describe_grid(batch: int, heads: int, sq: int, hd: int = 128) -> str:
     """The kernel's grid at this shape: (heads, batch, q tiles)."""
     tiles = -(-sq // BLOCK_Q)
     return (f"{BLOCK_Q}-row q tiles, grid {heads}x{batch}x{tiles} = "
-            f"{heads * batch * tiles} blocks of {BLOCK_THREADS} threads")
+            f"{heads * batch * tiles} blocks of {block_threads(hd)} threads")
 
 
 def _check_shapes(q, k, v, causal):

@@ -14,7 +14,9 @@ ranges of ``steps_per_split`` whole BK steps, none empty, so that tiles ×
 splits reaches it where K has the steps for it (on the 132-SM H100: 264
 decode blocks for kernel A, 528 for kernel D, 132 for kernel E, 66 wide
 ones). ``K`` is the depth the kernel walks: K for kernels A and D, the K/2
-packed rows for kernel E.
+packed rows for kernel E. A batched launch (kernel A over a MoE layer's
+``batch`` experts) counts every member's tiles toward that aim, and each
+member gets the same tile and splits.
 
 :func:`launch_plan` adds what a wrapper needs on the card, looked up once per
 shape and device: the plan and the size of its split-K scratch (an f32
@@ -65,10 +67,11 @@ class Plan:
     steps_per_split: int
     m_tiles: int
     n_tiles: int
+    batch: int = 1
 
     @property
     def blocks(self) -> int:
-        return self.m_tiles * self.n_tiles * self.splits
+        return self.m_tiles * self.n_tiles * self.splits * self.batch
 
     def k_ranges(self, K: int) -> List[Tuple[int, int]]:
         """[k0, k1) of each split, in the order the kernel sums them."""
@@ -78,26 +81,30 @@ class Plan:
 
     def describe(self) -> str:
         name = {SMALL: "small", WIDE: "wide", DEEP: "deep"}[self.tile]
+        members = f" x {self.batch} members" if self.batch > 1 else ""
         return (f"{name} {self.bm}x{self.bn}x{self.bk}, {self.m_tiles}x"
-                f"{self.n_tiles} tiles, S={self.splits} x "
+                f"{self.n_tiles} tiles{members}, S={self.splits} x "
                 f"{self.steps_per_split} steps, {self.blocks} blocks")
 
 
 @functools.lru_cache(maxsize=None)
-def plan(M: int, N: int, K: int, kind: str, sm_count: int) -> Plan:
+def plan(M: int, N: int, K: int, kind: str, sm_count: int,
+         batch: int = 1) -> Plan:
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: want one of {KINDS}")
-    if min(M, N) < 1 or K < 0 or sm_count < 1:
-        raise ValueError(f"no plan for M={M} N={N} K={K} on {sm_count} SMs")
+    if min(M, N, batch) < 1 or K < 0 or sm_count < 1:
+        raise ValueError(f"no plan for {batch} x M={M} N={N} K={K} on "
+                         f"{sm_count} SMs")
     tile = SMALL if M <= 16 else PREFILL_TILE[kind]
     bm, bn, bk = TILES[tile]
     m_tiles, n_tiles = _cdiv(M, bm), _cdiv(N, bn)
-    tiles = m_tiles * n_tiles
+    tiles = m_tiles * n_tiles * batch
     steps = max(1, _cdiv(K, bk))
     target = int(BLOCKS_PER_SM[kind, tile] * sm_count)
     splits = 1 if tiles >= target else min(_cdiv(target, tiles), steps)
     per = _cdiv(steps, splits)
-    return Plan(tile, bm, bn, bk, _cdiv(steps, per), per, m_tiles, n_tiles)
+    return Plan(tile, bm, bn, bk, _cdiv(steps, per), per, m_tiles, n_tiles,
+                batch)
 
 
 class Scratch:
@@ -145,15 +152,16 @@ SCRATCH = StreamScratch()
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(M: int, N: int, K: int, kind: str,
-                device: torch.device) -> Tuple[Plan, int, int]:
+                device: torch.device, batch: int = 1
+                ) -> Tuple[Plan, int, int]:
     """The plan for a CUDA ``device`` and the split-K scratch it needs:
-    workspace floats and counters (0 and 0 with one split). One cached
-    lookup per wrapper call."""
+    workspace floats and counters (0 and 0 with one split), for every
+    member of a batched launch. One cached lookup per wrapper call."""
     props = torch.cuda.get_device_properties(device)
-    p = plan(M, N, K, kind, props.multi_processor_count)
+    p = plan(M, N, K, kind, props.multi_processor_count, batch)
     if p.splits == 1:
         return p, 0, 0
-    return p, p.splits * M * N, p.m_tiles * p.n_tiles
+    return p, batch * p.splits * M * N, batch * p.m_tiles * p.n_tiles
 
 
 def plan_args(launch: Tuple[Plan, int, int], device: torch.device,

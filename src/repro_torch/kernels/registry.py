@@ -227,6 +227,30 @@ def _hopper_fp8(x, w, *, out_dtype=torch.bfloat16, bm=None, bn=None,
     return out.reshape(*lead, w.shape[-1])
 
 
+def hopper_experts(x, w, *, precision: str = "bf16",
+                   out_dtype=torch.bfloat16):
+    """x (E, M, K) × w (E, K, N) → (E, M, N) on kernel A in one launch: a
+    MoE layer's per-expert GEMMs, which the reference runs as its GEMM
+    vmapped over the experts (one ``pallas_call`` with an extra grid axis).
+    Under fp8 each expert's activation rows and weight get their own amax
+    and scale, as ``hopper.fp8`` gives each expert called alone
+    (:func:`fp8lib.quantize_stack`)."""
+    def kernel(a, b):
+        if precision != "fp8":
+            return fm.fp8_matmul_batched(a.contiguous(), b.contiguous(),
+                                         out_dtype)
+        aq, ainv = fp8lib.quantize_stack(a)
+        bq, binv = fp8lib.quantize_stack(b)
+        acc = fm.fp8_matmul_batched(aq, bq, torch.float32)
+        return (acc * (ainv * binv)[:, None, None]).to(out_dtype)
+
+    one = _torch_fp8 if precision == "fp8" else _torch_dense
+    return _fwd_with_ref_grad(
+        kernel, lambda a, b: torch.stack(
+            [one(a[e], b[e], out_dtype=out_dtype) for e in range(a.shape[0])]),
+        x, w)
+
+
 def _hopper_fp8_qdot(x_q, w_q, x_inv_scale=1.0, w_inv_scale=1.0, *,
                      out_dtype=torch.float32, bm=None, bn=None, bk=None):
     x2, lead = _flatten_lead(x_q)

@@ -1,14 +1,18 @@
 """Attention: the chunked online-softmax prefill path and the block.
 
 Twin of ``repro/models/attention.py``. ``chunked_attention`` is the plain
-prefill path (blocked online softmax, fully masked blocks skipped);
-``attention_block`` switches to the flash-attention kernel when
-``rt.use_pallas`` is set, as the reference does.
+prefill path (blocked online softmax, fully masked blocks skipped, and a
+sliding ``window`` for local layers); ``attention_block`` switches to the
+flash-attention kernel when ``rt.use_pallas`` is set and the layer has no
+window, as the reference does: local layers always prefill through
+``chunked_attention``. ``decode_attention`` / ``decode_attention_block``
+are the reference's single-token forms over a cache written at ``pos``
+(the serving stack decodes through ``models/transformer.py`` instead).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -89,6 +93,30 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len, *,
+                     window: int = 0) -> torch.Tensor:
+    """Single-token attention against a cache. q: (B, 1, h, hd); caches
+    (B, Smax, kv, hd); ``cache_len`` (scalar or (B,)) is the number of
+    valid positions, the new token's K/V already written; a ``window``
+    keeps the last ``window`` of them."""
+    b, _, h, hd = q.shape
+    smax = k_cache.shape[1]
+    k = _expand_kv(k_cache, h)
+    v = _expand_kv(v_cache, h)
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    pos = torch.arange(smax, device=q.device)
+    n = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = pos[None, :] < n
+    if window:
+        valid &= pos[None, :] >= n - window
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
 def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
                     cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT, *,
                     window: int = 0,
@@ -114,3 +142,30 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
     if return_kv:
         return out, (k, v)
     return out
+
+
+def decode_attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                           cfg: ArchConfig,
+                           cache: Tuple[torch.Tensor, torch.Tensor], pos: int,
+                           rt: RuntimeCfg = DEFAULT_RT, *, window: int = 0):
+    """One-token attention block with a cache update. x (B, 1, d); cache
+    (k, v) each (B, Smax, kv, hd); ``pos`` the row the new token's K/V is
+    written to. Returns (out, (k_cache, v_cache)): new tensors, the given
+    cache left as it was, as the reference's functional update leaves
+    it."""
+    b = x.shape[0]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    k_cache, v_cache = cache
+    positions = torch.full((1,), pos, device=x.device)
+    q = dense(x, p["w_q"], cfg, rt, "q").reshape(b, 1, h, hd)
+    k = dense(x, p["w_k"], cfg, rt, "k").reshape(b, 1, kv, hd)
+    v = dense(x, p["w_v"], cfg, rt, "v").reshape(b, 1, kv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    k_cache = k_cache.clone()
+    v_cache = v_cache.clone()
+    k_cache[:, pos:pos + 1] = k.to(k_cache.dtype)
+    v_cache[:, pos:pos + 1] = v.to(v_cache.dtype)
+    o = decode_attention(q, k_cache, v_cache, pos + 1, window=window)
+    out = dense(o.reshape(b, 1, h * hd), p["w_o"], cfg, rt, "o")
+    return out, (k_cache, v_cache)

@@ -3,12 +3,13 @@
 Twin of ``repro/models/layers.py``. ``dense()`` resolves the execution
 policy and dispatches through the matmul backend registry; every linear
 layer of the model goes through it, with a dense (K, N) weight or a
-:class:`PackedWeight` (sparse24 serving).
+:class:`PackedWeight` (sparse24 serving). ``batched_einsum`` is the
+f32-accumulating batched product of decode attention and the MoE layer.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,11 +26,16 @@ class RuntimeCfg:
 
     ``use_pallas`` keeps the reference's name: it routes prefill attention
     through the flash-attention kernel (and, with no explicit policy,
-    every linear through the ``hopper`` backend)."""
+    every linear through the ``hopper`` backend). ``f32_batched_dots`` and
+    ``moe_gather_dispatch`` keep the reference's defaults:
+    :func:`batched_einsum` upcasts its operands to f32, and the MoE layer
+    dispatches by one-hot einsums (``models/moe.py``)."""
     chunk_q: int = 1024
     chunk_kv: int = 1024
     use_pallas: bool = False
     act_dtype: Any = torch.bfloat16
+    f32_batched_dots: bool = True
+    moe_gather_dispatch: bool = False
     # Explicit execution policy; wins over cfg.precision / use_pallas.
     policy: Any = None
 
@@ -66,6 +72,19 @@ def dense(x: torch.Tensor, w, cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT,
         if pol.backend == "hopper_sparse24":
             pol = dataclasses.replace(pol, backend="hopper")
     return ex.matmul(x, w, pol, out_dtype=rt.act_dtype)
+
+
+def batched_einsum(expr: str, a: torch.Tensor, b: torch.Tensor,
+                   rt: RuntimeCfg, out_dtype=None) -> torch.Tensor:
+    """Batched matmul with f32 accumulation, then ``out_dtype`` (default
+    ``rt.act_dtype``). With ``rt.f32_batched_dots`` the operands are upcast
+    to f32 first, as in the reference; without it they stay in their own
+    type (bf16 products on the card sum in f32 inside the library's kernel,
+    whose result is in the operands' type before ``out_dtype``)."""
+    out_dtype = out_dtype or rt.act_dtype
+    if rt.f32_batched_dots:
+        return torch.einsum(expr, a.float(), b.float()).to(out_dtype)
+    return torch.einsum(expr, a, b).to(out_dtype)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -125,3 +144,37 @@ def swiglu_mlp(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
     up = dense(x, p["w_up"], cfg, rt, "mlp_up")
     h = F.silu(gate.float()).to(x.dtype) * up
     return dense(h, p["w_down"], cfg, rt, "mlp_down")
+
+
+# ---------------------------------------------------------------------------
+# Init (the reference's shapes and scales; torch's generator, not jax.random)
+# ---------------------------------------------------------------------------
+
+def init_weight(shape, dtype, generator=None, device=None,
+                scale: Optional[float] = None) -> torch.Tensor:
+    """normal × fan_in^-0.5 (or ``scale``), drawn in f32 then cast. As in
+    the reference, fan_in is ``shape[0]``: an expert stack (E, d, f) is
+    scaled by E^-0.5."""
+    fan_in = shape[0] if len(shape) > 1 else shape[-1]
+    s = scale if scale is not None else fan_in ** -0.5
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (w * s).to(dtype)
+
+
+def init_mlp(cfg: ArchConfig, generator=None, device=None,
+             dtype=torch.bfloat16, d_ff: Optional[int] = None
+             ) -> Dict[str, torch.Tensor]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {"w_gate": init_weight((d, f), dtype, generator, device),
+            "w_up": init_weight((d, f), dtype, generator, device),
+            "w_down": init_weight((f, d), dtype, generator, device)}
+
+
+def init_attn(cfg: ArchConfig, generator=None, device=None,
+              dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    return {"w_q": init_weight((d, cfg.q_dim), dtype, generator, device),
+            "w_k": init_weight((d, cfg.kv_dim), dtype, generator, device),
+            "w_v": init_weight((d, cfg.kv_dim), dtype, generator, device),
+            "w_o": init_weight((cfg.q_dim, d), dtype, generator, device)}

@@ -1,4 +1,4 @@
-"""Decoder stack for ``attn_dense`` architectures (llama3 and its kin).
+"""Decoder stack for the attention-style block kinds.
 
 Twin of ``repro/models/transformer.py`` for the serving slices:
 ``init_params``, ``prefill``, ``decode_step`` (with ``_decode_attn``) and
@@ -6,14 +6,25 @@ Twin of ``repro/models/transformer.py`` for the serving slices:
 ``_paged_decode_attn``) and ``init_paged_cache``, and the speculative
 verify ``multi_decode_step`` / ``paged_multi_decode_step`` with the
 rollback of rejected writes (``_rollback_caches``). Where the reference
-scans over parameters stacked on a leading layer axis, the port keeps a
-Python list with one dict per layer and loops over it (PyTorch runs
-eagerly; there is no trace to keep small).
+scans over super-layers whose parameters are stacked on a leading axis,
+the port keeps a Python list with one dict per layer and loops over it
+(PyTorch runs eagerly; there is no trace to keep small). Layer ``i`` has
+the kind ``pat[i % len(pat)]`` of ``cfg.superlayer_pattern``
+(:func:`layer_kinds`):
+
+* ``attn_dense`` and ``attn_global``: attention over every position, then
+  a SwiGLU MLP; their K/V leaves hold a row per position and move into
+  the page pools of the paged cache (:data:`PAGED_KINDS`);
+* ``attn_moe``: the same attention, then the MoE layer (``models/moe.py``);
+* ``attn_local``: attention over the last ``cfg.window_size`` positions,
+  whose cache is a rolling window of ``min(window, max_len)`` rows,
+  position p at row ``p % window``, slot-indexed in the paged cache too.
 
 Decode writes the new token's K/V into the cache in place, saving a copy
 of the whole cache per step; ``decode_step`` returns the same cache
 objects it was given; the paged step does the same to its page pools.
-Other block kinds (MoE, local attention, SSM, hybrid) are later slices.
+The recurrent kinds (mamba2, rwkv6, zamba2's shared attention and its
+hybrid tail) are the next slice.
 """
 from __future__ import annotations
 
@@ -24,38 +35,46 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import execution as ex
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
-    DEFAULT_RT, RuntimeCfg, dense, embed_tokens, lm_logits, rms_norm,
-    swiglu_mlp)
+    DEFAULT_RT, RuntimeCfg, dense, embed_tokens, init_attn, init_mlp,
+    init_weight, lm_logits, rms_norm, swiglu_mlp)
 
 Params = Dict[str, Any]
 Caches = List[Dict[str, torch.Tensor]]
 
 # Block kinds whose K/V/pos leaves become page pools in the paged cache.
+# ``attn_local`` keeps its rolling window (already O(window); paging buys
+# nothing), slot-indexed.
 PAGED_KINDS = ("attn_dense", "attn_global", "attn_moe", "shared_attn")
+# The block kinds this port serves.
+SUPPORTED_KINDS = ("attn_dense", "attn_moe", "attn_local", "attn_global")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    if cfg.superlayer_pattern != ("attn_dense",):
+    pat = cfg.superlayer_pattern
+    if not set(pat) <= set(SUPPORTED_KINDS) or cfg.hybrid_tail_layers:
         raise NotImplementedError(
-            f"{cfg.name}: block pattern {cfg.superlayer_pattern} — only "
-            "attn_dense stacks are ported so far; the other block kinds "
-            "(MoE, local/global attention, mamba2, rwkv6, hybrid) come in "
-            "a later slice")
+            f"{cfg.name}: block pattern {pat} — the port serves "
+            f"{', '.join(SUPPORTED_KINDS)} stacks; the recurrent kinds "
+            "(mamba2, rwkv6, zamba2's shared attention and its hybrid "
+            "tail) come in the next slice")
+
+
+def layer_kinds(cfg: ArchConfig) -> List[str]:
+    """The block kind of every layer: the super-layer pattern repeated
+    ``cfg.num_superlayers`` times."""
+    pat = cfg.superlayer_pattern
+    return [pat[i % len(pat)] for i in range(cfg.num_superlayers * len(pat))]
+
+
+def _window(cfg: ArchConfig, kind: str) -> int:
+    return cfg.window_size if kind == "attn_local" else 0
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-
-def _init(shape, dtype, generator, device, scale: Optional[float] = None):
-    """normal × fan_in^-0.5 (or ``scale``), drawn in f32 then cast."""
-    fan_in = shape[0] if len(shape) > 1 else shape[-1]
-    s = scale if scale is not None else fan_in ** -0.5
-    w = torch.randn(shape, generator=generator, device=device,
-                    dtype=torch.float32)
-    return (w * s).to(dtype)
-
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 device=None, dtype=torch.bfloat16) -> Params:
@@ -65,35 +84,58 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     check_supported(cfg)
     d, vp = cfg.d_model, cfg.padded_vocab
 
-    def w(*shape, scale=None):
-        return _init(shape, dtype, generator, device, scale)
-
     def zeros():
         return torch.zeros((d,), dtype=torch.float32, device=device)
 
-    params: Params = {"embed": w(vp, d, scale=1.0), "head": w(d, vp),
-                      "final_norm": zeros(), "layers": []}
-    for _ in range(cfg.num_layers):
-        params["layers"].append({
-            "norm1": zeros(),
-            "attn": {"w_q": w(d, cfg.q_dim), "w_k": w(d, cfg.kv_dim),
-                     "w_v": w(d, cfg.kv_dim), "w_o": w(cfg.q_dim, d)},
-            "norm2": zeros(),
-            "mlp": {"w_gate": w(d, cfg.d_ff), "w_up": w(d, cfg.d_ff),
-                    "w_down": w(cfg.d_ff, d)},
-        })
+    params: Params = {
+        "embed": init_weight((vp, d), dtype, generator, device, scale=1.0),
+        "head": init_weight((d, vp), dtype, generator, device),
+        "final_norm": zeros(), "layers": []}
+    for kind in layer_kinds(cfg):
+        layer = {"norm1": zeros(),
+                 "attn": init_attn(cfg, generator, device, dtype),
+                 "norm2": zeros()}
+        if kind == "attn_moe":
+            layer["moe"] = moe_mod.init_moe(cfg, generator, device, dtype)
+        else:
+            layer["mlp"] = init_mlp(cfg, generator, device, dtype)
+        params["layers"].append(layer)
     return params
+
+
+def ffn(kind: str, h: torch.Tensor, p: Params, cfg: ArchConfig,
+        rt: RuntimeCfg) -> torch.Tensor:
+    """A layer's feed-forward sublayer: the MoE layer's output (its aux
+    loss dropped) or the SwiGLU MLP's."""
+    if kind == "attn_moe":
+        return moe_mod.moe_mlp(h, p["moe"], cfg, rt)[0]
+    return swiglu_mlp(h, p["mlp"], cfg, rt)
 
 
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
 
-def _kv_to_cache(k: torch.Tensor, v: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Decode cache from prefill K/V (B, S, kv, hd); ``pos`` is per row."""
+def _kv_to_cache(k: torch.Tensor, v: torch.Tensor,
+                 window: int = 0) -> Dict[str, torch.Tensor]:
+    """Decode cache from prefill K/V (B, S, kv, hd); ``pos`` is per row.
+    With a ``window`` and a prompt of at least ``window`` tokens the cache
+    is the rolling window: row j holds the position p in [S - window, S)
+    with p % window == j, so decode keeps writing at pos % window."""
     b, s = k.shape[:2]
-    pos = torch.arange(s, dtype=torch.int32, device=k.device)
-    return {"k": k, "v": v, "pos": pos.expand(b, s)}
+    dev = k.device
+    if not window or s < window:
+        pos = torch.arange(s, dtype=torch.int32, device=dev)
+        return {"k": k, "v": v, "pos": pos.expand(b, s)}
+    p = torch.arange(s - window, s, dtype=torch.int32, device=dev)
+    rows = (p % window).long()
+    kc = torch.zeros((b, window) + k.shape[2:], dtype=k.dtype, device=dev)
+    vc = torch.zeros((b, window) + v.shape[2:], dtype=v.dtype, device=dev)
+    kc[:, rows] = k[:, s - window:]
+    vc[:, rows] = v[:, s - window:]
+    posc = torch.zeros((window,), dtype=torch.int32, device=dev)
+    posc[rows] = p
+    return {"k": kc, "v": vc, "pos": posc.expand(b, window)}
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
@@ -101,14 +143,15 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     """tokens (B, S) → (last-token logits (B, Vp) f32, per-layer caches)."""
     x = embed_tokens(tokens, params["embed"]).to(rt.act_dtype)
     caches: Caches = []
-    for p in params["layers"]:
+    for kind, p in zip(layer_kinds(cfg), params["layers"]):
+        window = _window(cfg, kind)
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         a, (k, v) = attn_mod.attention_block(h, p["attn"], cfg, rt,
-                                             return_kv=True)
-        caches.append(_kv_to_cache(k, v))
+                                             window=window, return_kv=True)
+        caches.append(_kv_to_cache(k, v, window))
         x = x + a
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + swiglu_mlp(h, p["mlp"], cfg, rt)
+        x = x + ffn(kind, h, p, cfg, rt)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(x[:, -1], params["head"], cfg.vocab_size,
                        policy=ex.policy_from(cfg, rt))
@@ -133,12 +176,14 @@ def _decode_qkv(x, p, posb: torch.Tensor, cfg: ArchConfig, rt: RuntimeCfg):
 
 
 def _decode_attend(q, kc, vc, posc, posb: torch.Tensor, cfg: ArchConfig,
-                   out_dtype) -> torch.Tensor:
-    """One query row per slot against cache rows in the dense layout: kc/vc
-    (B, S, kvh, hd), posc (B, S). Row i is attended when it was written
-    (``posc >= 0``) at a position up to the slot's own and ``i <= pos``.
-    The dense and the paged decode steps both end here, so their arithmetic
-    cannot drift. Returns (B, 1, h*hd) in ``out_dtype``."""
+                   out_dtype, window: int = 0) -> torch.Tensor:
+    """One query row per slot against cache rows: kc/vc (B, S, kvh, hd),
+    posc (B, S). A row is attended when it was written (``posc >= 0``) at
+    a position up to the slot's own, and then, in the dense layout, when
+    its index is at most ``pos``, or, in a rolling window, when its
+    position lies in the window's last ``window`` positions. The dense and
+    the paged decode steps both end here, so their arithmetic cannot
+    drift. Returns (B, 1, h*hd) in ``out_dtype``."""
     b, smax = kc.shape[:2]
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = hd ** -0.5
@@ -148,8 +193,11 @@ def _decode_attend(q, kc, vc, posc, posb: torch.Tensor, cfg: ArchConfig,
     # posc = -1 marks unwritten (or freed) rows; each slot attends only to
     # rows its own occupant wrote at positions <= its own pos.
     pcol = posb[:, None]
-    valid = (posc >= 0) & (posc <= pcol) \
-        & (torch.arange(smax, device=q.device)[None, :] <= pcol)
+    valid = (posc >= 0) & (posc <= pcol)
+    if window:
+        valid &= posc > pcol - window
+    else:
+        valid &= torch.arange(smax, device=q.device)[None, :] <= pcol
     s = torch.where(valid[:, None, None, :], s,
                     torch.full_like(s, attn_mod.NEG_INF))
     pr = torch.softmax(s, dim=-1)
@@ -157,42 +205,49 @@ def _decode_attend(q, kc, vc, posc, posb: torch.Tensor, cfg: ArchConfig,
     return o.reshape(b, 1, h * hd).to(out_dtype)
 
 
-def _dense_rows(caches: Caches, posb: torch.Tensor):
-    """Where a dense decode step writes, the same in every layer: each
-    slot's row ``posb`` in the flattened (B * max_len) rows, clamped to the
-    slot's last row, and whether the write is kept (``posb < max_len``).
-    A write at or past the cache's end is dropped, as the reference's
-    ``.at[bidx, slot].set`` drops it (a speculative verify probes up to k-1
-    positions past an almost-full slot). Computed once per step."""
-    b, smax = caches[0]["k"].shape[:2]
-    rows = torch.arange(0, b * smax, smax, device=posb.device) \
-        + posb.clamp(max=smax - 1)
-    return rows, posb < smax
+def _dense_rows(b: int, smax: int, posb: torch.Tensor, window: int = 0):
+    """Where a dense decode step writes in a (B, smax) cache, the same in
+    every layer of that length: each slot's row in the flattened (B *
+    smax) rows, and whether the write is kept. A rolling window writes at
+    ``posb % smax`` and always keeps it. A full-length cache writes at
+    ``posb`` clamped to the slot's last row and keeps it only below
+    ``smax``: a write at or past the cache's end is dropped, as the
+    reference's ``.at[bidx, slot].set`` drops it (a speculative verify
+    probes up to k-1 positions past an almost-full slot). Computed once
+    per step."""
+    base = torch.arange(0, b * smax, smax, device=posb.device)
+    if window:
+        return base + posb % smax, None
+    return base + posb.clamp(max=smax - 1), posb < smax
 
 
 def _dense_write(cache, k: torch.Tensor, v: torch.Tensor,
                  posb: torch.Tensor, rows: torch.Tensor,
-                 keep: torch.Tensor) -> None:
+                 keep: Optional[torch.Tensor]) -> None:
     """Write each slot's new K/V (B, kvh, hd) and position at its row
     (:func:`_dense_rows`) in place. A dropped write puts the clamped row's
     old value back: a device select, no host sync."""
     b, smax = cache["k"].shape[:2]
     for key, new in (("k", k), ("v", v), ("pos", posb)):
         flat = cache[key].view((b * smax,) + cache[key].shape[2:])
-        old = flat.index_select(0, rows)
-        mask = keep.view((b,) + (1,) * (old.dim() - 1))
-        flat.index_copy_(0, rows, torch.where(mask, new.to(flat.dtype), old))
+        new = new.to(flat.dtype)
+        if keep is not None:
+            old = flat.index_select(0, rows)
+            mask = keep.view((b,) + (1,) * (old.dim() - 1))
+            new = torch.where(mask, new, old)
+        flat.index_copy_(0, rows, new)
 
 
 def _decode_attn(x, p, cache, posb: torch.Tensor, rows: torch.Tensor,
-                 keep: torch.Tensor, cfg: ArchConfig, rt: RuntimeCfg):
-    """One-token attention over the dense cache, each slot at its own
-    position ``posb`` (B,), writing where :func:`_dense_rows` says. The
-    cache is updated in place."""
+                 keep: Optional[torch.Tensor], cfg: ArchConfig,
+                 rt: RuntimeCfg, window: int = 0):
+    """One-token attention over the dense (or rolling-window) cache, each
+    slot at its own position ``posb`` (B,), writing where
+    :func:`_dense_rows` says. The cache is updated in place."""
     q, k, v = _decode_qkv(x, p, posb, cfg, rt)
     _dense_write(cache, k[:, 0], v[:, 0], posb, rows, keep)
     o = _decode_attend(q, cache["k"], cache["v"], cache["pos"], posb, cfg,
-                       x.dtype)
+                       x.dtype, window)
     return dense(o, p["w_o"], cfg, rt, "o")
 
 
@@ -246,20 +301,51 @@ def _paged_decode_attn(x, p, cache, posb: torch.Tensor,
     return dense(o, p["w_o"], cfg, rt, "o")
 
 
+def _dense_attn(caches: Caches, posb: torch.Tensor, cfg: ArchConfig,
+                rt: RuntimeCfg, paged_attn=None):
+    """The step's attention ``attn(kind, h, p, cache)``: the write rows of
+    each cache length computed once, before the layers; ``paged_attn``,
+    when given, serves the :data:`PAGED_KINDS` layers."""
+    b = posb.shape[0]
+    rows = {}
+    for kind, c in zip(layer_kinds(cfg), caches):
+        if paged_attn is not None and kind in PAGED_KINDS:
+            continue
+        window = _window(cfg, kind)
+        key = (c["k"].shape[1], window)
+        if key not in rows:
+            rows[key] = _dense_rows(b, key[0], posb, window)
+
+    def attn(kind, h, p, cache):
+        if paged_attn is not None and kind in PAGED_KINDS:
+            return paged_attn(h, p, cache)
+        window = _window(cfg, kind)
+        r, keep = rows[cache["k"].shape[1], window]
+        return _decode_attn(h, p, cache, posb, r, keep, cfg, rt, window)
+    return attn
+
+
+def _positions(pos, b: int, device) -> torch.Tensor:
+    posb = torch.as_tensor(pos, device=device).to(torch.long)
+    return posb.expand(b) if posb.dim() == 0 else posb
+
+
 def _decode(params: Params, tokens: torch.Tensor, caches: Caches, pos,
-            cfg: ArchConfig, rt: RuntimeCfg, make_attn):
-    """The decode stack; ``make_attn(posb)`` gives the step's attention
-    ``attn(h, p, cache)`` (per-step work done once, before the layers)."""
-    b = tokens.shape[0]
-    posb = torch.as_tensor(pos, device=tokens.device).to(torch.long)
-    posb = posb.expand(b) if posb.dim() == 0 else posb
-    attn = make_attn(posb)
+            cfg: ArchConfig, rt: RuntimeCfg, page_map=None):
+    """The decode stack, each layer's attention from :func:`_dense_attn`
+    (and, with ``page_map``, the paged attention of the pooled layers)."""
+    posb = _positions(pos, tokens.shape[0], tokens.device)
+    paged = None
+    if page_map is not None:
+        paged = lambda h, p, cache: _paged_decode_attn(  # noqa: E731
+            h, p, cache, posb, page_map, cfg, rt)
+    attn = _dense_attn(caches, posb, cfg, rt, paged)
     x = embed_tokens(tokens, params["embed"]).to(rt.act_dtype)
-    for p, cache in zip(params["layers"], caches):
+    for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        x = x + attn(h, p["attn"], cache)
+        x = x + attn(kind, h, p["attn"], cache)
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + swiglu_mlp(h, p["mlp"], cfg, rt)
+        x = x + ffn(kind, h, p, cfg, rt)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(x[:, 0], params["head"], cfg.vocab_size,
                        policy=ex.policy_from(cfg, rt))
@@ -270,65 +356,115 @@ def decode_step(params: Params, tokens: torch.Tensor, caches: Caches, pos,
                 cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT):
     """One decoding step. tokens (B, 1); ``pos`` a scalar (lockstep) or a
     (B,) vector (continuous batching). A slot at or past the cache length
-    writes nothing (its row attends to the cache as it stands), as in the
-    reference. Returns (logits (B, Vp) f32, caches updated in place)."""
-    def make_attn(posb):
-        rows, keep = _dense_rows(caches, posb)
-        return lambda h, p, cache: _decode_attn(h, p, cache, posb, rows,
-                                                keep, cfg, rt)
-    return _decode(params, tokens, caches, pos, cfg, rt, make_attn)
+    writes nothing to a full-length cache (its row attends to the cache as
+    it stands), as in the reference; a rolling window always writes, at
+    ``pos % window``. Returns (logits (B, Vp) f32, caches updated in
+    place)."""
+    return _decode(params, tokens, caches, pos, cfg, rt)
 
 
 def paged_decode_step(params: Params, tokens: torch.Tensor, caches: Caches,
                       pos, page_map: torch.Tensor, cfg: ArchConfig,
                       rt: RuntimeCfg = DEFAULT_RT):
     """``decode_step`` over a paged cache (``init_paged_cache`` layout).
-    ``page_map`` (B, max_pages) int32 is shared by every layer: one
-    physical page id names the same rows in each layer's pools. Returns
-    (logits (B, Vp) f32, caches updated in place)."""
+    ``page_map`` (B, max_pages) int32 is shared by every pooled layer: one
+    physical page id names the same rows in each layer's pools; the
+    rolling windows stay slot-indexed and decode as in ``decode_step``.
+    Returns (logits (B, Vp) f32, caches updated in place)."""
     page_map = page_map.to(device=tokens.device, dtype=torch.int32)
-    return _decode(params, tokens, caches, pos, cfg, rt,
-                   lambda posb: lambda h, p, cache: _paged_decode_attn(
-                       h, p, cache, posb, page_map, cfg, rt))
+    return _decode(params, tokens, caches, pos, cfg, rt, page_map)
 
 
 # ---------------------------------------------------------------------------
 # Speculative multi-token verify (core/speculative.py)
 # ---------------------------------------------------------------------------
 
+def window_layers(caches: Caches, cfg: ArchConfig) -> Caches:
+    """The rolling-window (state) leaves among ``caches``: those a decode
+    step overwrites in place, where masking cannot bring back the row it
+    replaced."""
+    return [c for kind, c in zip(layer_kinds(cfg), caches)
+            if kind == "attn_local"]
+
+
+def save_window_rows(win: Caches, posb: torch.Tensor):
+    """The rows a decode step at ``posb`` is about to overwrite in each
+    rolling window, ``posb % w`` of each slot: (rows, [{k, v, pos} of
+    those rows per layer]). With :func:`restore_window_rows` it is the
+    undo log of the steps of a draft or a verify."""
+    if not win:
+        return None
+    b, w = win[0]["k"].shape[:2]
+    rows = torch.arange(0, b * w, w, device=posb.device) + posb % w
+    return rows, [{key: c[key].view((b * w,) + c[key].shape[2:])
+                   .index_select(0, rows) for key in ("k", "v", "pos")}
+                  for c in win]
+
+
+def restore_window_rows(win: Caches, log, undo: Optional[torch.Tensor] = None
+                        ) -> None:
+    """Put back the rows :func:`save_window_rows` saved, the last step
+    first, so that a row two steps wrote gets its oldest value. ``log[j]``
+    is step j's entry; with ``undo`` (B, k) bool only the (slot, step)
+    pairs marked are put back, the others keep their write."""
+    if not win:
+        return
+    b, w = win[0]["k"].shape[:2]
+    for j in reversed(range(len(log))):
+        rows, saved = log[j]
+        for c, old in zip(win, saved):
+            for key in ("k", "v", "pos"):
+                flat = c[key].view((b * w,) + c[key].shape[2:])
+                val = old[key]
+                if undo is not None:
+                    mask = undo[:, j].view((b,) + (1,) * (val.dim() - 1))
+                    val = torch.where(mask, val, flat.index_select(0, rows))
+                flat.index_copy_(0, rows, val)
+
+
 def _rollback_caches(caches: Caches, n_acc: torch.Tensor, posb: torch.Tensor,
-                     k: int, page_map: Optional[torch.Tensor] = None) -> None:
-    """Scrub the rejected writes of a k-step verify, in place: every row
-    above ``posb + n_acc`` goes back to the init values (pos -1, k/v 0),
-    which is what an unwritten row holds, so scrubbing a row nobody wrote
-    changes nothing. Row ``posb + j`` holds step ``j``'s write only, so
-    the rows kept are the accepted steps' own.
+                     k: int, cfg: ArchConfig, log,
+                     page_map: Optional[torch.Tensor] = None) -> None:
+    """Bring a k-step verify's caches, in place, to each slot's state after
+    its step ``n_acc``, as the reference's snapshot selection does. The
+    two leaf classes differ:
 
-    The reference keeps the last of its per-step snapshots and scrubs it
-    the same way; only its append leaves (the attention K/V/pos that
-    ``check_supported`` admits) are needed here. The state-leaf snapshots
-    come with the block kinds that have state.
-
-    * Dense ``(B, max_len, ...)``: a mask over the rows (row index ==
-      position).
-    * Pooled ``(pages + 1, page_size, ...)``: each rejected step's (page,
+    * **Append leaves** (the :data:`PAGED_KINDS` K/V/pos): row ``posb + j``
+      holds step j's write only, so every row above ``posb + n_acc`` goes
+      back to the init values (pos -1, k/v 0), which is what an unwritten
+      row holds: scrubbing a row nobody wrote changes nothing. Dense
+      ``(B, max_len, ...)``: a mask over the rows (row index == position).
+      Pooled ``(pages + 1, page_size, ...)``: each rejected step's (page,
       offset) row is scattered to the init values; accepted steps and
-      unmapped or out-of-range positions go to the trash page (several
-      writes of one constant to it are harmless).
+      unmapped or out-of-range positions go to the trash page.
+    * **State leaves** (the rolling windows): a step overwrites the row of
+      the position ``window`` before its own, which no mask recovers.
+      The reference keeps a snapshot of the whole cache per step; the port
+      keeps the rows each step overwrote (``log``, from
+      :func:`save_window_rows`) and puts back those of the rejected steps
+      ``j > n_acc``, newest first. The window ends bit-equal to the
+      reference's snapshot at step ``n_acc``.
     """
+    kinds = layer_kinds(cfg)
+    append = [c for kind, c in zip(kinds, caches) if kind in PAGED_KINDS]
+    j = torch.arange(k, device=posb.device)
+    restore_window_rows(window_layers(caches, cfg), log,
+                        j[None, :] > n_acc[:, None])
+    if not append:
+        return
     if page_map is None:
-        smax = caches[0]["k"].shape[1]
+        smax = append[0]["k"].shape[1]
         rows = torch.arange(smax, device=posb.device)
         scrub = rows[None, :] > (posb + n_acc)[:, None]          # (B, smax)
-        for c in caches:
+        for c in append:
             c["pos"].masked_fill_(scrub, -1)
             c["k"].masked_fill_(scrub[:, :, None, None], 0)
             c["v"].masked_fill_(scrub[:, :, None, None], 0)
         return
-    pool = caches[0]["k"]
+    pool = append[0]["k"]
     ps, trash = pool.shape[1], pool.shape[0] - 1
     mp = page_map.shape[1]
-    j = torch.arange(1, k, device=posb.device)
+    j = j[1:]
     pj = posb[:, None] + j[None, :]                              # (B, k-1)
     lpage = torch.clamp(pj // ps, 0, mp - 1)
     phys = torch.gather(page_map.long(), 1, lpage)
@@ -336,7 +472,7 @@ def _rollback_caches(caches: Caches, n_acc: torch.Tensor, posb: torch.Tensor,
                                                        > n_acc[:, None]),
                        phys, torch.full_like(phys, trash)).flatten()
     off = (pj % ps).flatten()
-    for c in caches:
+    for c in append:
         c["pos"][phys, off] = -1
         c["k"][phys, off] = 0
         c["v"][phys, off] = 0
@@ -355,11 +491,12 @@ def verify_decode(params: Params, tokens_seq: torch.Tensor, caches: Caches,
     (:func:`_rollback_caches`)."""
     b, k = tokens_seq.shape
     dev = tokens_seq.device
-    posb = torch.as_tensor(pos, device=dev).to(torch.long)
-    posb = posb.expand(b) if posb.dim() == 0 else posb
-    greedy, logits = [], []
+    posb = _positions(pos, b, dev)
+    win = window_layers(caches, cfg)
+    greedy, logits, log = [], [], []
     for j in range(k):
         tok = tokens_seq[:, j:j + 1].to(torch.int32)
+        log.append(save_window_rows(win, posb + j))
         if page_map is None:
             lg, caches = decode_step(params, tok, caches, posb + j, cfg, rt)
         else:
@@ -381,7 +518,7 @@ def verify_decode(params: Params, tokens_seq: torch.Tensor, caches: Caches,
         torch.int32)
     next_tok = torch.gather(g, 1, n_acc[:, None].long())
     page_map = None if page_map is None else page_map.to(device=dev)
-    _rollback_caches(caches, n_acc, posb, k, page_map)
+    _rollback_caches(caches, n_acc, posb, k, cfg, log, page_map)
     return next_tok, g, n_acc, caches, logits
 
 
@@ -394,9 +531,12 @@ def multi_decode_step(params: Params, tokens_seq: torch.Tensor,
     drafts; ``pos`` (B,) each slot's decode position; ``active`` (B,) bool
     marks occupied slots. Step ``j`` is plain ``decode_step`` at ``pos +
     j``, so its argmax ``greedy[:, j]`` is what plain greedy decode emits
-    after committing the first ``j`` candidates; ``n_acc`` is the longest
-    prefix of drafts matching them, and the committed tokens
-    ``greedy[:, :n_acc + 1]`` are plain greedy decode's.
+    after committing the first ``j`` candidates, and ``n_acc`` is the
+    longest prefix of drafts matching them. Where the batch's rows do not
+    interact, the committed tokens ``greedy[:, :n_acc + 1]`` are plain
+    greedy decode's. A MoE layer's expert capacity couples the rows of a
+    step, so there a rejected draft of one slot can change another slot's
+    routing, as in the reference.
 
     Returns ``(next_tokens (B, 1), greedy (B, k), n_acc (B,), caches)``,
     the caches updated in place with the rejected writes rolled back."""
@@ -416,38 +556,52 @@ def paged_multi_decode_step(params: Params, tokens_seq: torch.Tensor,
                          page_map=page_map)[:4]
 
 
+# ---------------------------------------------------------------------------
+# Cache init
+# ---------------------------------------------------------------------------
+
+def _rows(n: int, batch: int, cfg: ArchConfig, dtype, device
+          ) -> Dict[str, torch.Tensor]:
+    """``batch`` × ``n`` zeroed K/V rows and ``pos = -1`` (unwritten)."""
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"k": torch.zeros((batch, n, kvh, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, n, kvh, hd), dtype=dtype, device=device),
+            "pos": torch.full((batch, n), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def _block_cache(kind: str, batch: int, max_len: int, cfg: ArchConfig,
+                 dtype, device) -> Dict[str, torch.Tensor]:
+    """One layer's dense cache: ``max_len`` rows per slot, or the rolling
+    window's ``min(window, max_len)``."""
+    if kind == "attn_local":
+        return _rows(min(cfg.window_size, max_len), batch, cfg, dtype, device)
+    return _rows(max_len, batch, cfg, dtype, device)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Caches:
     """Zeroed K/V and ``pos = -1`` (unwritten) rows, one dict per layer."""
     check_supported(cfg)
-    kvh, hd = cfg.num_kv_heads, cfg.head_dim
-    return [{"k": torch.zeros((batch, max_len, kvh, hd), dtype=dtype,
-                              device=device),
-             "v": torch.zeros((batch, max_len, kvh, hd), dtype=dtype,
-                              device=device),
-             "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
-                               device=device)}
-            for _ in range(cfg.num_layers)]
+    return [_block_cache(kind, batch, max_len, cfg, dtype, device)
+            for kind in layer_kinds(cfg)]
 
 
 def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
                      page_size: int, pages: int, dtype=torch.bfloat16,
                      device=None) -> Caches:
-    """Paged twin of ``init_cache``: each layer's K/V/pos become pools of
-    ``pages + 1`` physical pages (the extra one is the trash page, see
-    ``_paged_decode_attn``) of ``page_size`` rows each, shared by all
-    ``batch`` slots: k/v zeroed, pos -1. Requires ``max_len % page_size ==
-    0`` so the gathered layout matches the dense one row for row."""
+    """Paged twin of ``init_cache``: the K/V/pos of each
+    :data:`PAGED_KINDS` layer become pools of ``pages + 1`` physical pages
+    (the extra one is the trash page, see ``_paged_decode_attn``) of
+    ``page_size`` rows each, shared by all ``batch`` slots: k/v zeroed,
+    pos -1. The rolling windows stay slot-indexed, as in ``init_cache``.
+    Requires ``max_len % page_size == 0`` so the gathered layout matches
+    the dense one row for row."""
     check_supported(cfg)
     if max_len % page_size:
         raise ValueError(f"max_len={max_len} not a multiple of "
                          f"page_size={page_size}")
-    kvh, hd = cfg.num_kv_heads, cfg.head_dim
-    p1 = pages + 1
-    return [{"k": torch.zeros((p1, page_size, kvh, hd), dtype=dtype,
-                              device=device),
-             "v": torch.zeros((p1, page_size, kvh, hd), dtype=dtype,
-                              device=device),
-             "pos": torch.full((p1, page_size), -1, dtype=torch.int32,
-                               device=device)}
-            for _ in range(cfg.num_layers)]
+    return [_rows(page_size, pages + 1, cfg, dtype, device)
+            if kind in PAGED_KINDS
+            else _block_cache(kind, batch, max_len, cfg, dtype, device)
+            for kind in layer_kinds(cfg)]

@@ -16,7 +16,8 @@ one (a request the pool cannot grow finishes truncated), and freed pages are
 scrubbed before reuse. Greedy paged decode equals dense decode token for
 token. ``export_slot``/``import_slot`` hand one in-flight request, with its
 cache state, to another session: the whole slot row on dense sessions, only
-the pages in use on paged ones.
+the pages in use on paged ones (a rolling window, slot-indexed in both
+layouts, always moves whole).
 
 Under a sparse24 policy the session prunes and packs the eligible weights
 once, at construction, after moving them to its device
@@ -71,8 +72,8 @@ from repro_torch.core import speculative as spv
 from repro_torch.kernels import paged_attention  # noqa: F401 (hopper_paged)
 from repro_torch.models.layers import DEFAULT_RT, RuntimeCfg
 from repro_torch.models.transformer import (
-    Caches, decode_step, init_cache, init_paged_cache, paged_decode_step,
-    prefill)
+    PAGED_KINDS, Caches, decode_step, init_cache, init_paged_cache,
+    layer_kinds, paged_decode_step, prefill)
 
 resolve_device = cc.resolve_device
 
@@ -175,7 +176,8 @@ def export_nbytes(export: SlotExport) -> int:
 
 def _write_slot_cache(full: Caches, new: Caches, slot: int) -> None:
     """Insert a batch-1 prefill cache into ``slot``: k/v/pos write their
-    first S rows (the prompt's positions)."""
+    first S rows (the prompt's positions; a rolling window's rows as the
+    prefill rolled them)."""
     for f, n in zip(full, new):
         for key in ("k", "v", "pos"):
             row = n[key][0]
@@ -200,17 +202,24 @@ def _clear_slot_cache(caches: Caches, slot: int) -> None:
 
 
 # -- paged-cache twins of the slot helpers ----------------------------------
-# ``phys`` vectors are padded to the per-slot table width with the trash
-# page's index; trash writes only ever carry scrub values.
+# ``pooled[i]`` says whether layer i's leaves are page pools (its kind is
+# in PAGED_KINDS); the others (rolling windows) keep the slot-indexed
+# layout and take the dense helpers' path. ``phys`` vectors are padded to
+# the per-slot table width with the trash page's index; trash writes only
+# ever carry scrub values.
 
-def _paged_write_prompt(full: Caches, new: Caches,
-                        phys: torch.Tensor) -> None:
+def _paged_write_prompt(pooled: List[bool], full: Caches, new: Caches,
+                        slot: int, phys: torch.Tensor) -> None:
     """Paged ``_write_slot_cache``: the batch-1 prefill cache's rows are
     padded to ``max_len`` (k/v with zeros, pos with -1, the scrubbed-page
     values), split into pages and written to the slot's physical pages
-    ``phys`` (max_pages,), unallocated entries naming the trash page."""
+    ``phys`` (max_pages,), unallocated entries naming the trash page; a
+    slot-indexed layer writes its rows into ``slot``."""
     mp = phys.shape[0]
-    for f, n in zip(full, new):
+    for f, n, is_pool in zip(full, new, pooled):
+        if not is_pool:
+            _write_slot_cache([f], [n], slot)
+            continue
         for key in ("k", "v", "pos"):
             pool, row = f[key], n[key][0]
             ps = pool.shape[1]
@@ -221,34 +230,47 @@ def _paged_write_prompt(full: Caches, new: Caches,
             pool[phys] = slab.reshape((mp, ps) + row.shape[1:])
 
 
-def _paged_clear_slot(caches: Caches, phys: torch.Tensor) -> None:
+def _paged_clear_slot(pooled: List[bool], caches: Caches, slot: int,
+                      phys: torch.Tensor) -> None:
     """Paged ``_clear_slot_cache``: scrub the slot's released physical
     pages back to their init state (k/v zeroed, pos -1) before the
     allocator reuses them, so free-list reuse never leaks a previous
-    tenant's KV."""
-    for c in caches:
+    tenant's KV; clear a slot-indexed layer's ``slot`` row."""
+    for c, is_pool in zip(caches, pooled):
+        if not is_pool:
+            _clear_slot_cache([c], slot)
+            continue
         c["k"][phys] = 0
         c["v"][phys] = 0
         c["pos"][phys] = -1
 
 
-def _paged_take_slot(caches: Caches, page_ids: List[int]) -> Caches:
-    """One slot's pages in use, gathered for export: per layer, k/v/pos
-    shaped (n_used, page_size, ...). Copies, not views."""
+def _paged_take_slot(pooled: List[bool], caches: Caches, slot: int,
+                     page_ids: List[int]) -> Caches:
+    """One slot's state, gathered for export: per pooled layer the pages
+    in use, k/v/pos shaped (n_used, page_size, ...); per slot-indexed
+    layer the slot's row. Copies, not views."""
     idx = torch.as_tensor(page_ids, dtype=torch.long,
                           device=caches[0]["k"].device)
-    return [{key: c[key][idx] for key in ("k", "v", "pos")} for c in caches]
+    return [{key: c[key][idx] if is_pool else c[key][slot].clone()
+             for key in ("k", "v", "pos")}
+            for c, is_pool in zip(caches, pooled)]
 
 
-def _paged_put_slot(caches: Caches, state: Caches,
-                    page_ids: List[int]) -> None:
-    """Scatter an exported slot's pages into freshly allocated ones: the
-    receiving half of an O(pages) handoff."""
+def _paged_put_slot(pooled: List[bool], caches: Caches, state: Caches,
+                    slot: int, page_ids: List[int]) -> None:
+    """Scatter an exported slot's pages into freshly allocated ones, and
+    its slot-indexed rows into ``slot``: the receiving half of an
+    O(pages) handoff."""
     idx = torch.as_tensor(page_ids, dtype=torch.long,
                           device=caches[0]["k"].device)
-    for c, s in zip(caches, state):
+    for c, s, is_pool in zip(caches, state, pooled):
         for key in ("k", "v", "pos"):
-            c[key][idx] = s[key].to(device=c[key].device, dtype=c[key].dtype)
+            val = s[key].to(device=c[key].device, dtype=c[key].dtype)
+            if is_pool:
+                c[key][idx] = val
+            else:
+                c[key][slot] = val
 
 
 @dataclasses.dataclass
@@ -367,11 +389,13 @@ class ServeSession:
             self.caches = init_paged_cache(cfg, batch_slots, max_len,
                                            self.page_size, self.pages,
                                            device=self.device)
+            self._pooled = [k in PAGED_KINDS for k in layer_kinds(cfg)]
             self._sync_page_map()
             self.step_fn = make_paged_serve_step(cfg, rt)
         else:
             self.page_size, self.pages = 0, 0
             self.pager = None
+            self._pooled = [False] * cfg.num_layers
             self.caches = init_cache(cfg, batch_slots, max_len,
                                      device=self.device)
             self.step_fn = make_serve_step(cfg, rt)
@@ -485,7 +509,7 @@ class ServeSession:
                 wall_s=time.perf_counter() - t0,
                 tenant=req.tenant or "", meta={"uid": req.uid, "slot": slot})
         if self.paged:
-            _paged_write_prompt(self.caches, pcaches,
+            _paged_write_prompt(self._pooled, self.caches, pcaches, slot,
                                 self._phys_padded(page_ids))
             self._sync_page_map()
             self.pager.record(self.tracer, phase="admit", slot=slot,
@@ -507,7 +531,8 @@ class ServeSession:
         if self.paged:
             released = self.pager.free_slot(slot)
             # scrub the released pages BEFORE the free list hands them out
-            _paged_clear_slot(self.caches, self._phys_padded(released))
+            _paged_clear_slot(self._pooled, self.caches, slot,
+                              self._phys_padded(released))
             self._sync_page_map()
             self.pager.record(self.tracer, phase="free", slot=slot)
         else:
@@ -526,7 +551,9 @@ class ServeSession:
         if self.paged:
             page_ids = self.pager.slot_pages(slot)
             out = SlotExport(request=req,
-                             caches=_paged_take_slot(self.caches, page_ids),
+                             caches=_paged_take_slot(self._pooled,
+                                                     self.caches, slot,
+                                                     page_ids),
                              pos=pos, token=token, pages=len(page_ids),
                              page_size=self.page_size)
             if self.tracer is not None:
@@ -577,14 +604,16 @@ class ServeSession:
         if self.paged and export.page_size != self.page_size:
             raise ValueError(f"page_size mismatch: export {export.page_size} "
                              f"vs session {self.page_size}")
-        # paged leaves compare their page geometry (the export carries the
-        # pages in use, not the pool); dense leaves the whole slot row
+        # pooled leaves compare their page geometry (the export carries the
+        # pages in use, not the pool); slot-indexed leaves the whole slot
+        # row (a rolling window's included)
         ours = [(key, tuple(c[key].shape[1:]))
                 for c in self.caches for key in ("k", "v", "pos")]
-        theirs = [(key, tuple(s[key].shape[1:] if self.paged
+        theirs = [(key, tuple(s[key].shape[1:] if is_pool
                               else s[key].shape))
-                  for s in export.caches for key in ("k", "v", "pos")]
-        if ours != theirs:
+                  for s, is_pool in zip(export.caches, self._pooled)
+                  for key in ("k", "v", "pos")]
+        if len(export.caches) != len(self.caches) or ours != theirs:
             raise ValueError(
                 "cache layout mismatch: the exporting session's slot state "
                 "does not fit this session (same cfg, max_len and page_size "
@@ -593,7 +622,8 @@ class ServeSession:
             # may raise PagesExhausted: gate on can_accept_handoff() first
             page_ids = self.pager.import_slot(slot, export.pages,
                                               export.pos + 1)
-            _paged_put_slot(self.caches, export.caches, page_ids)
+            _paged_put_slot(self._pooled, self.caches, export.caches, slot,
+                            page_ids)
             self._sync_page_map()
             self.pager.record(self.tracer, phase="import", slot=slot,
                               tenant=export.request.tenant or "",

@@ -119,3 +119,76 @@ def test_caches_unstack_bit_for_bit(paged):
                 tree["layers"]["b0"][key][i].view(np.uint16).tobytes()
         np.testing.assert_array_equal(layer["pos"].numpy(),
                                       tree["layers"]["b0"]["pos"][i])
+
+
+BLOCK_ARCHS = ["granite-moe-3b-a800m", "llama4-scout-17b-a16e",
+               "gemma3-12b"]
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_block_patterns_unstack_bit_for_bit(arch):
+    """Super-layer s of block b{i} becomes the port's layer s * len(pattern)
+    + i, leaf for leaf, bit for bit: MoE blocks with their f32 router and
+    expert stacks (4-D there, 3-D here) and llama4-scout's shared expert,
+    and gemma3's local and global blocks."""
+    cfg = get_reduced(arch)
+    tree = jax.tree.map(np.asarray,
+                        init_params(jax.random.PRNGKey(0), cfg))
+    port = bridge.params_from_numpy(tree, cfg)
+    pat = cfg.superlayer_pattern
+    assert len(port["layers"]) == cfg.num_layers
+    for li, layer in enumerate(port["layers"]):
+        block = tree["layers"][f"b{li % len(pat)}"]
+        s = li // len(pat)
+        want = dict(_leaves(block))
+        got = dict(_leaves(layer))
+        assert sorted(got) == sorted(want), li
+        for path, t in got.items():
+            w = np.asarray(want[path])[s]
+            assert tuple(t.shape) == w.shape, (li, path)
+            bits = bridge.to_numpy_bits(t)
+            assert bits.tobytes() == w.view(bits.dtype).tobytes(), (li, path)
+        if pat[li % len(pat)] == "attn_moe":
+            assert layer["moe"]["router"].dtype == torch.float32
+            assert layer["moe"]["w_gate"].shape == (
+                cfg.num_experts, cfg.d_model, cfg.d_ff)
+            assert ("shared" in layer["moe"]) == cfg.moe_shared_expert
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_window_caches_unstack_bit_for_bit(paged):
+    """gemma3's cache: local blocks keep window rows per slot (in the paged
+    cache too), the global block's leaves are rows or page pools; layer
+    s * 6 + i gets super-layer s of b{i}."""
+    from repro.models import init_cache, init_paged_cache
+    cfg = get_reduced("gemma3-12b")
+    cache = init_paged_cache(cfg, 2, 96, 16, 7) if paged \
+        else init_cache(cfg, 2, 96)
+    rng = np.random.default_rng(8)
+    tree = {"layers": {
+        b: {"k": np.asarray(jnp.asarray(rng.normal(size=leaf["k"].shape),
+                                        jnp.bfloat16)),
+            "v": np.asarray(jnp.asarray(rng.normal(size=leaf["v"].shape),
+                                        jnp.bfloat16)),
+            "pos": rng.integers(-1, 96, leaf["pos"].shape).astype(np.int32)}
+        for b, leaf in cache["layers"].items()}}
+    port = bridge.caches_from_numpy(tree, cfg)
+    pat = cfg.superlayer_pattern
+    for li, layer in enumerate(port):
+        want = tree["layers"][f"b{li % len(pat)}"]
+        rows = cfg.window_size if pat[li % len(pat)] == "attn_local" \
+            else (16 if paged else 96)
+        assert layer["k"].shape[1] == rows
+        for key in ("k", "v"):
+            assert bridge.to_numpy_bits(layer[key]).tobytes() == \
+                want[key][li // len(pat)].view(np.uint16).tobytes()
+        np.testing.assert_array_equal(layer["pos"].numpy(),
+                                      want["pos"][li // len(pat)])

@@ -51,9 +51,66 @@ def _same_bits(a, b):
     return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
 
 
+# A MoE layer's expert GEMMs (granite-moe-3b-a800m: 40 experts, d 1536,
+# expert d_ff 512; capacity 1 at a 4-slot decode step, 32 and 20 at 128- and
+# 77-token prefills), a split plan, and ragged members without aligned rows.
+EXPERT_SHAPES = [(40, 1, 1536, 512), (40, 1, 512, 1536), (40, 32, 1536, 512),
+                 (40, 20, 512, 1536), (2, 4, 4096, 1024), (3, 33, 200, 72)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [1, 77, 128, 200, 512])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("e,m,k,n", EXPERT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn,
+                                   torch.float8_e5m2])
+def test_cuda_batched_gemm_matches_plain(e, m, k, n, dtype):
+    """One launch for every member; each member as the plain GEMM gives it;
+    a member of zero rows (an expert no token reached) gives exact zeros;
+    a second call gives the same bits."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((e, m, k), generator=gen, device="cuda")
+    x[e // 2] = 0
+    x = x.to(dtype)
+    w = (torch.randn((e, k, n), generator=gen, device="cuda")
+         * k ** -0.5).to(dtype)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = fm.LAUNCHES
+        got = fm.fp8_matmul_batched(x, w, out_dtype)
+        assert fm.LAUNCHES == before + 1
+        want = fm.fp8_matmul_batched_plain(x, w, out_dtype)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-3)
+        assert bool((got[e // 2] == 0).all())
+        assert _same_bits(got, fm.fp8_matmul_batched(x, w, out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "fp8"])
+def test_cuda_expert_matmul_is_each_expert_alone(precision):
+    """``registry.hopper_experts`` against each expert through the hopper
+    backend's own entry (its quantization per expert under fp8), with
+    experts that received no token: finite, and zero there."""
+    from repro_torch.kernels import registry
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((8, 5, 256), generator=gen, device="cuda")
+    x[[1, 6]] = 0
+    x = x.bfloat16()
+    w = (torch.randn((8, 256, 128), generator=gen, device="cuda")
+         * 256 ** -0.5).bfloat16()
+    got = registry.hopper_experts(x, w, precision=precision)
+    be = registry.get_backend("hopper")
+    one = be.fp8 if precision == "fp8" else be.dense
+    want = torch.stack([one(x[i], w[i]) for i in range(8)])
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool((got[[1, 6]] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 77, 128, 200, 512, 1040])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("group", [1, 4, 8])
 def test_cuda_flash_kernel_matches_plain(s, hd, group):
     """Causal, two kv heads of ``group`` query heads each; ragged S masks a

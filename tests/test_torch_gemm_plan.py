@@ -144,3 +144,31 @@ def test_split_scratch_belongs_to_the_stream():
     b = table.get(cpu, 8, 100, 4)
     assert b is not a and b.ws.data_ptr() != a.ws.data_ptr()
     assert table.get(torch.device("meta"), 7, 1, 1) is not a
+
+
+# granite-moe-3b-a800m's expert GEMMs (40 experts, d 1536, expert d_ff 512)
+# at a 4-slot decode step (capacity 1) and a 128-token prefill (32), and a
+# batch of two whose tiles alone do not fill the card
+EXPERT_SHAPES = [(40, 1, 1536, 512), (40, 1, 512, 1536), (40, 32, 1536, 512),
+                 (40, 32, 512, 1536), (2, 4, 4096, 1024)]
+
+
+@pytest.mark.parametrize("E,M,K,N", EXPERT_SHAPES)
+def test_batched_plan_counts_every_member(E, M, K, N):
+    """A batched launch gives each member the tile and splits a launch of
+    that size would take, counting every member's tiles toward the card:
+    the granite shapes fill it without a split (320, 960, 160 and 480
+    blocks), and a batch of two still splits K."""
+    p = gp.plan(M, N, K, "gemm", H100_SMS, E)
+    alone = gp.plan(M, N, K, "gemm", H100_SMS)
+    assert (p.tile, p.m_tiles, p.n_tiles, p.batch) == \
+        (alone.tile, alone.m_tiles, alone.n_tiles, E)
+    target = int(gp.BLOCKS_PER_SM["gemm", p.tile] * H100_SMS)
+    tiles = p.m_tiles * p.n_tiles * E
+    assert p.blocks == tiles * p.splits
+    if tiles >= target:
+        assert p.splits == 1
+    else:
+        assert 1 < p.splits <= alone.splits
+    assert f"x {E} members" in p.describe()
+    assert gp.plan(M, N, K, "gemm", H100_SMS, 1) == alone

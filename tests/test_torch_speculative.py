@@ -451,3 +451,180 @@ def test_adaptive_session_actuates_depth():
     assert sess.spec_totals == {}         # plain steps while floored
     assert sess.adaptive_k.steps > 0      # ticked on the plain steps
     assert _session(speculative=4).adaptive_k is None
+
+
+# ---------------------------------------------------------------------------
+# The MoE and local/global stacks
+# ---------------------------------------------------------------------------
+
+BLOCK_MAX_LEN, BLOCK_PAGE = 96, 16
+
+
+def _block_sessions(arch, paged, spec):
+    """The port's and JAX's f32 sessions of a reduced arch, one init."""
+    cfg = get_reduced(arch)
+    params = init_params(jax.random.PRNGKey(0), cfg, dtype=jnp.float32)
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg)
+    kw = dict(paged=True, page_size=BLOCK_PAGE) if paged else {}
+    port = tsl.ServeSession(
+        tparams, cfg, batch_slots=SLOTS, max_len=BLOCK_MAX_LEN,
+        rt=TRt(act_dtype=torch.float32),
+        policy=tex.parse_policy("bf16:dense:torch"), speculative=spec,
+        device="cpu", **kw)
+    ref = jsl.ServeSession(
+        params, cfg, batch_slots=SLOTS, max_len=BLOCK_MAX_LEN,
+        rt=JRt(act_dtype=jnp.float32, param_dtype=jnp.float32),
+        policy=jex.parse_policy("bf16:dense:jnp"), speculative=spec, **kw)
+    return port, ref
+
+
+def _block_run(sess, module, arch):
+    """gemma3: a prompt past the window (70 tokens, so the draft and the
+    verify overwrite window rows the next steps still attend to), an
+    accept-friendly repeated pair and two random prompts; MoE: lengths
+    its group size of 64 takes."""
+    cfg = get_reduced(arch)
+    rng = np.random.default_rng(4)
+    lens = (70, 40, 5) if arch == "gemma3-12b" else (64, 40, 5)
+    prompts = [rng.integers(0, cfg.vocab_size, lens[0]).astype(np.int32),
+               np.array([7, 11] * 4, np.int32)] \
+        + [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+           for n in lens[1:]]
+    for uid, p in enumerate(prompts):
+        sess.submit(module.Request(uid=uid, prompt=p, max_new=12,
+                                   tenant="ab"[uid % 2]))
+    sess.run()
+    return {r.uid: list(r.out) for r in sess.completed}
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_gemma3_speculative_equals_plain_and_jax(paged):
+    """The rolling windows through a k = 4 fp8 draft and its verify: the
+    port commits its plain greedy stream and JAX's speculative session's,
+    with JAX's acceptance totals."""
+    spec = {"k": 4, "draft_policy": "fp8"}
+    plain = _block_run(_block_sessions("gemma3-12b", paged, None)[0], tsl,
+                       "gemma3-12b")
+    port, ref = _block_sessions("gemma3-12b", paged, spec)
+    got = _block_run(port, tsl, "gemma3-12b")
+    want = _block_run(ref, jsl, "gemma3-12b")
+    assert got == plain == want
+    assert port.spec_totals == ref.spec_totals
+    assert sum(t["accepted"] for t in port.spec_totals.values()) > 0
+
+
+@pytest.mark.parametrize("draft", ["bf16:dense", "fp8:sparse24"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_moe_speculative_equals_jax(paged, draft):
+    """granite: expert capacity couples a step's slots, so a rejected
+    draft of one slot can change another slot's routing in the verify and
+    the committed stream need not be plain greedy's, in the reference as
+    in the port; the gate is JAX's speculative session (its
+    ``multi_decode_step``): the same tokens and acceptance totals. A bf16
+    draft is the verify's own computation (every draft accepted, plain
+    greedy's stream); the fp8:sparse24 draft is rejected often, and here
+    the stream parts from plain greedy's in both packages. (With the fp8
+    draft the two packages' drafts part at some draft step, which this
+    test does not trace, so their acceptance differs.)"""
+    spec = {"k": 4, "draft_policy": draft}
+    port, ref = _block_sessions("granite-moe-3b-a800m", paged, spec)
+    got = _block_run(port, tsl, "granite-moe-3b-a800m")
+    want = _block_run(ref, jsl, "granite-moe-3b-a800m")
+    assert got == want
+    assert port.spec_totals == ref.spec_totals
+    plain = _block_run(_block_sessions("granite-moe-3b-a800m", paged,
+                                       None)[0], tsl, "granite-moe-3b-a800m")
+    assert (got == plain) == (draft == "bf16:dense")
+
+
+@pytest.mark.parametrize("n_acc", [0, 2])
+@pytest.mark.parametrize("paged", [False, True])
+def test_window_after_the_draft_and_verify_equals_plain_decode(paged, n_acc):
+    """gemma3 with a 70-token prompt (its windows of 64 rolled): the fp8
+    draft overwrites window rows in place and puts them back; a k = 4
+    verify whose drafts match plain greedy for ``n_acc`` steps must leave
+    every leaf, windows included, bit-equal to ``n_acc + 1`` plain decode
+    steps (the reference's snapshot at step ``n_acc``); and from JAX's own
+    cache, bridged, the port's rolled-back windows equal JAX's
+    ``multi_decode_step``'s bit for bit except in the rows the accepted
+    steps wrote (within one bf16 ulp there)."""
+    from repro.models import transformer as jtf
+    k = 4
+    cfg = get_reduced("gemma3-12b")
+    port, ref = _block_sessions("gemma3-12b", paged, None)
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, 70) \
+        .astype(np.int32)
+    port.admit(tsl.Request(uid=0, prompt=prompt, max_new=32))
+    ref.admit(jsl.Request(uid=0, prompt=prompt, max_new=32))
+    for _ in range(2):
+        port.decode_once()
+        ref.decode_once()
+    pos = torch.as_tensor(port.slot_pos.astype(np.int64))
+    if paged:
+        port.pager.extend_slot(0, int(pos[0]) + k)
+        port._sync_page_map()
+    pm = (port._page_map,) if paged else ()
+    step = tt.paged_decode_step if paged else tt.decode_step
+    plain = _clone(port.caches)
+    tok, greedy = port.tokens, []
+    for j in range(n_acc + 1):
+        logits, _ = step(port.params, tok, plain, pos + j, *pm, port.cfg,
+                         port.rt)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        greedy.append(int(tok[0, 0]))
+    draft = tspv.make_draft_step(port.cfg, port.rt, tex.parse_policy("fp8"),
+                                 k - 1, paged=paged)
+    before = _clone(port.caches)
+    draft(port.params, port.tokens, port.caches, pos, *pm)
+    win = [i for i, kind in enumerate(tt.layer_kinds(cfg))
+           if kind == "attn_local"]
+    assert all(torch.equal(port.caches[i][key], before[i][key])
+               for i in win for key in ("k", "v", "pos"))
+    bad = (greedy[-1] + 1) % cfg.vocab_size
+    seq = [int(port.tokens[0, 0])] + greedy[:n_acc] + [bad] * (k - 1 - n_acc)
+    seq2 = torch.tensor([seq, [int(port.tokens[1, 0])] + [0] * (k - 1)],
+                        dtype=torch.int32)
+    active = torch.tensor([True, False])
+    multi = tt.paged_multi_decode_step if paged else tt.multi_decode_step
+    _, g, acc, rolled = multi(port.params, seq2, port.caches, pos, active,
+                              *pm, port.cfg, port.rt)
+    assert int(acc[0]) == n_acc and g[0, :n_acc + 1].tolist() == greedy
+    # the active slot's rows (slot 0 of each slot-indexed leaf, the pool's
+    # pages but the trash page): the idle slot keeps one write per verify
+    # where plain steps would write it n_acc + 1 times
+    pooled = [paged and kind in tt.PAGED_KINDS for kind in tt.layer_kinds(cfg)]
+    assert all(torch.equal(_bits(x[key][:-1] if pool else x[key][0]),
+                           _bits(y[key][:-1] if pool else y[key][0]))
+               for x, y, pool in zip(rolled, plain, pooled)
+               for key in ("k", "v", "pos"))
+    if paged:
+        return
+    # JAX's verify on its own cache, and the port's on that cache bridged:
+    # positions equal, every row the rollback kept or put back bit-equal,
+    # the accepted steps' new rows within one bf16 ulp (each package
+    # computes its own K/V projections)
+    jpos = jnp.asarray(ref.slot_pos)
+    from_jax = bridge.caches_from_numpy(jax.tree.map(np.asarray, ref.caches),
+                                        cfg)
+    _, _, jacc, jc = jtf.multi_decode_step(
+        ref.params, jnp.asarray(seq2.numpy()), ref.caches, jpos,
+        jnp.asarray([True, False]), cfg, ref.rt)
+    _, _, acc2, rolled2 = tt.multi_decode_step(
+        port.params, seq2, from_jax, torch.as_tensor(np.array(jpos)).long(),
+        active, cfg, port.rt)
+    assert int(jacc[0]) == int(acc2[0]) == n_acc
+    jl = bridge.caches_from_numpy(jax.tree.map(np.asarray, jc), cfg)
+    w = cfg.window_size
+    written = np.zeros((2, w), bool)
+    written[0, [(int(jpos[0]) + j) % w for j in range(n_acc + 1)]] = True
+    written[1, int(jpos[1]) % w] = True
+    for i in win:
+        np.testing.assert_array_equal(rolled2[i]["pos"].numpy(),
+                                      jl[i]["pos"].numpy())
+        for key in ("k", "v"):
+            got, want = rolled2[i][key], jl[i][key]
+            assert torch.equal(_bits(got[~torch.from_numpy(written)]),
+                               _bits(want[~torch.from_numpy(written)]))
+            np.testing.assert_allclose(got.float().numpy(),
+                                       want.float().numpy(), rtol=2 ** -7,
+                                       atol=0)
