@@ -55,21 +55,35 @@ def to_numpy_bits(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _tree(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree(v, device) for k, v in tree.items()}
-    return to_torch(tree, device)
+def _convert(sub, device, take=None):
+    """A subtree → torch: dicts recurse, a packed 2:4 weight (the
+    reference's ``PackedWeight`` named tuple) becomes the port's, every
+    array goes through ``take`` (an index into a stacked axis) first."""
+    if isinstance(sub, dict):
+        return {k: _convert(v, device, take) for k, v in sub.items()}
+
+    def one(a):
+        a = np.asarray(a)
+        return to_torch(a if take is None else take(a), device)
+
+    if isinstance(sub, tuple) and hasattr(sub, "meta"):
+        return PackedWeight(one(sub.values), one(sub.meta))
+    return one(sub)
 
 
-def _unstack(tree, cfg, one):
-    """Layer ``s * len(pat) + i`` of the port is super-layer ``s`` of the
-    reference's block ``b{i}``: ``one(block_tree, s)`` per layer, in
-    layer order."""
+def _unstack(tree, cfg, device):
+    """The port's per-layer list: layer ``s * len(pat) + i`` is super-layer
+    ``s`` of the reference's block ``b{i}``, and a hybrid stack's tail
+    layer ``t`` (stacked ``(n_tail, ...)`` under ``tree["tail"]``)
+    follows, in layer order."""
     from repro_torch.models.transformer import check_supported
     check_supported(cfg)
     n_pat = len(cfg.superlayer_pattern)
-    return [one(tree["layers"][f"b{li % n_pat}"], li // n_pat)
-            for li in range(cfg.num_superlayers * n_pat)]
+    layers = [_convert(tree["layers"][f"b{li % n_pat}"], device,
+                       lambda a, s=li // n_pat: a[s])
+              for li in range(cfg.num_superlayers * n_pat)]
+    return layers + [_convert(tree["tail"], device, lambda a, t=t: a[t])
+                     for t in range(cfg.hybrid_tail_layers)]
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
@@ -77,24 +91,20 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
 
     ``tree["layers"]["b{i}"]`` holds block ``i`` of the super-layer
     pattern stacked over ``cfg.num_superlayers``; super-layer ``s`` of it
-    becomes ``params["layers"][s * len(pattern) + i]``. A MoE block's
-    ``moe`` subtree comes along: the f32 router, the expert stacks (4-D
+    becomes ``params["layers"][s * len(pattern) + i]``, and zamba2's tail
+    layers (``tree["tail"]``) the layers after them. A MoE block's ``moe``
+    subtree comes along: the f32 router, the expert stacks (4-D
     ``(n_super, E, d, f)`` there, 3-D ``(E, d, f)`` here) and the shared
-    expert."""
-    def layer(sub, i):
-        if isinstance(sub, dict):
-            return {k: layer(v, i) for k, v in sub.items()}
-        if isinstance(sub, tuple) and hasattr(sub, "meta"):   # packed 2:4
-            return PackedWeight(to_torch(np.asarray(sub.values)[i], device),
-                                to_torch(np.asarray(sub.meta)[i], device))
-        return to_torch(np.asarray(sub)[i], device)
-
-    return {
-        "embed": to_torch(tree["embed"], device),
-        "head": to_torch(tree["head"], device),
-        "final_norm": to_torch(tree["final_norm"], device),
-        "layers": _unstack(tree, cfg, layer),
-    }
+    expert; a recurrent block's ``mamba`` or ``rwkv`` subtree; and the
+    shared attention block (``params["shared_attn"]``, unstacked in both;
+    its invoking layers' own dicts are empty). A packed tree's 3-D packed
+    stacks (``pack_model_params``) become one packed weight per layer."""
+    out = {key: _convert(tree[key], device)
+           for key in ("embed", "head", "final_norm")}
+    out["layers"] = _unstack(tree, cfg, device)
+    if "shared_attn" in tree:
+        out["shared_attn"] = _convert(tree["shared_attn"], device)
+    return out
 
 
 def caches_from_numpy(tree: Dict[str, Any], cfg,
@@ -103,10 +113,9 @@ def caches_from_numpy(tree: Dict[str, Any], cfg,
 
     The dense cache ``{"layers": {"b{i}": {"k": (n_super, B, S, kvh, hd),
     "v": ..., "pos": (n_super, B, S)}}}`` (S the window's rows for a local
-    block) and the paged one (pools ``(n_super, pages+1, page_size, ...)``
-    for the pooled blocks) stack super-layers on axis 0; the port's layer
-    ``s * len(pattern) + i`` gets ``{"k", "v", "pos"}`` of super-layer
-    ``s`` of block ``i``, bit for bit."""
-    return _unstack(tree, cfg, lambda block, i: {
-        key: to_torch(np.asarray(block[key])[i], device)
-        for key in ("k", "v", "pos")})
+    block; a recurrent block's state leaves instead) and the paged one
+    (pools ``(n_super, pages+1, page_size, ...)`` for the pooled blocks)
+    stack super-layers on axis 0, and a hybrid stack's ``tree["tail"]``
+    stacks its tail layers; the port's layer ``s * len(pattern) + i``
+    gets every leaf of super-layer ``s`` of block ``i``, bit for bit."""
+    return _unstack(tree, cfg, device)

@@ -149,8 +149,13 @@ def make_draft_step(cfg, rt, draft_policy: ex.ExecutionPolicy,
     position ``window`` before its own, which the verify's first steps
     still attend to. So the draft keeps the rows it overwrites there and
     puts them back, newest first, when its chain ends
-    (``transformer.save_window_rows``). So the cache after a speculative
-    step is bit for bit the cache of the plain steps it committed
+    (``transformer.save_window_rows``). A recurrent state (mamba2, rwkv6)
+    is replaced whole by every step, and the verify must start from the
+    state before the draft: the draft keeps references to the state
+    leaves it starts from (``transformer.snapshot_states``, no copy: a
+    step replaces a leaf and leaves the old tensor as it was) and puts
+    them back when its chain ends. So the cache after a speculative step
+    is bit for bit the cache of the plain steps it committed
     (``tests/test_torch_speculative.py``), with no copy of the cache."""
     from repro_torch.models import transformer as tf
     cfg, rt = ex.apply_policy(cfg, rt, draft_policy)
@@ -162,6 +167,8 @@ def make_draft_step(cfg, rt, draft_policy: ex.ExecutionPolicy,
         tok = tokens.to(torch.int32)
         seq = [tok]
         win = tf.window_layers(caches, cfg)
+        states = tf.state_layers(caches, cfg)
+        before = tf.snapshot_states(states)
         log = []
         for j in range(n_draft):
             log.append(tf.save_window_rows(win, posb + j))
@@ -174,6 +181,7 @@ def make_draft_step(cfg, rt, draft_policy: ex.ExecutionPolicy,
             tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
             seq.append(tok)
         tf.restore_window_rows(win, log)
+        tf.restore_states(states, before)
         return torch.cat(seq, dim=1)
 
     if paged:

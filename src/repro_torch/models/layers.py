@@ -29,11 +29,16 @@ class RuntimeCfg:
     every linear through the ``hopper`` backend). ``f32_batched_dots`` and
     ``moe_gather_dispatch`` keep the reference's defaults:
     :func:`batched_einsum` upcasts its operands to f32, and the MoE layer
-    dispatches by one-hot einsums (``models/moe.py``)."""
+    dispatches by one-hot einsums (``models/moe.py``). ``ssm_chunk`` caps
+    the chunk of the mamba2 and rwkv6 prefill scans (with
+    ``cfg.ssm_chunk``); the port always loops over the chunks in Python,
+    so the reference's ``static_loops`` and ``max_static_chunks`` have no
+    counterpart."""
     chunk_q: int = 1024
     chunk_kv: int = 1024
     use_pallas: bool = False
     act_dtype: Any = torch.bfloat16
+    ssm_chunk: int = 256
     f32_batched_dots: bool = True
     moe_gather_dispatch: bool = False
     # Explicit execution policy; wins over cfg.precision / use_pallas.

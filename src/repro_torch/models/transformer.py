@@ -1,4 +1,4 @@
-"""Decoder stack for the attention-style block kinds.
+"""Decoder stack for every block kind of the repo's configs.
 
 Twin of ``repro/models/transformer.py`` for the serving slices:
 ``init_params``, ``prefill``, ``decode_step`` (with ``_decode_attn``) and
@@ -9,7 +9,8 @@ rollback of rejected writes (``_rollback_caches``). Where the reference
 scans over super-layers whose parameters are stacked on a leading axis,
 the port keeps a Python list with one dict per layer and loops over it
 (PyTorch runs eagerly; there is no trace to keep small). Layer ``i`` has
-the kind ``pat[i % len(pat)]`` of ``cfg.superlayer_pattern``
+the kind ``pat[i % len(pat)]`` of ``cfg.superlayer_pattern``, and a hybrid
+stack's ``cfg.hybrid_tail_layers`` trailing mamba2 layers follow
 (:func:`layer_kinds`):
 
 * ``attn_dense`` and ``attn_global``: attention over every position, then
@@ -18,13 +19,22 @@ the kind ``pat[i % len(pat)]`` of ``cfg.superlayer_pattern``
 * ``attn_moe``: the same attention, then the MoE layer (``models/moe.py``);
 * ``attn_local``: attention over the last ``cfg.window_size`` positions,
   whose cache is a rolling window of ``min(window, max_len)`` rows,
-  position p at row ``p % window``, slot-indexed in the paged cache too.
+  position p at row ``p % window``, slot-indexed in the paged cache too;
+* ``shared_attn`` (zamba2): the attention and MLP of the one
+  ``params["shared_attn"]`` dict, whatever layer invokes it (its own
+  layer dict is empty); its K/V are per invocation and pooled;
+* ``mamba2`` and ``rwkv6`` (:data:`STATE_KINDS`): recurrent blocks whose
+  cache is a whole-slot state (mamba2: ``h`` (B, nh, hp, N) f32 and
+  ``conv`` (B, 3, di + 2N); rwkv6: ``S`` (B, nh, hd, hd) f32 and
+  ``prev_tm`` / ``prev_cm`` (B, 1, d)), slot-indexed in the paged cache.
 
 Decode writes the new token's K/V into the cache in place, saving a copy
 of the whole cache per step; ``decode_step`` returns the same cache
-objects it was given; the paged step does the same to its page pools.
-The recurrent kinds (mamba2, rwkv6, zamba2's shared attention and its
-hybrid tail) are the next slice.
+objects it was given; the paged step does the same to its page pools. A
+state leaf is replaced in its layer's dict by the step's new tensor, as
+the reference's functional update replaces it (its type becomes the
+step's: the conv and prev rows take the activation type); the tensor it
+replaces is left as it was, so keeping a reference to it is a snapshot.
 """
 from __future__ import annotations
 
@@ -35,7 +45,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import execution as ex
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv6 as rk
 from repro_torch.models.layers import (
     DEFAULT_RT, RuntimeCfg, dense, embed_tokens, init_attn, init_mlp,
     init_weight, lm_logits, rms_norm, swiglu_mlp)
@@ -47,25 +59,28 @@ Caches = List[Dict[str, torch.Tensor]]
 # ``attn_local`` keeps its rolling window (already O(window); paging buys
 # nothing), slot-indexed.
 PAGED_KINDS = ("attn_dense", "attn_global", "attn_moe", "shared_attn")
+# Recurrent kinds: their cache is a state that each step replaces whole.
+STATE_KINDS = ("mamba2", "rwkv6")
 # The block kinds this port serves.
-SUPPORTED_KINDS = ("attn_dense", "attn_moe", "attn_local", "attn_global")
+SUPPORTED_KINDS = ("attn_dense", "attn_moe", "attn_local", "attn_global",
+                   "shared_attn") + STATE_KINDS
 
 
 def check_supported(cfg: ArchConfig) -> None:
     pat = cfg.superlayer_pattern
-    if not set(pat) <= set(SUPPORTED_KINDS) or cfg.hybrid_tail_layers:
+    if not set(pat) <= set(SUPPORTED_KINDS):
         raise NotImplementedError(
             f"{cfg.name}: block pattern {pat} — the port serves "
-            f"{', '.join(SUPPORTED_KINDS)} stacks; the recurrent kinds "
-            "(mamba2, rwkv6, zamba2's shared attention and its hybrid "
-            "tail) come in the next slice")
+            f"{', '.join(SUPPORTED_KINDS)} stacks")
 
 
 def layer_kinds(cfg: ArchConfig) -> List[str]:
     """The block kind of every layer: the super-layer pattern repeated
-    ``cfg.num_superlayers`` times."""
+    ``cfg.num_superlayers`` times, then the hybrid tail's mamba2 layers
+    (zamba2-1.2b: 6 x (6 mamba2 + shared_attn) + 2, 44 layers)."""
     pat = cfg.superlayer_pattern
-    return [pat[i % len(pat)] for i in range(cfg.num_superlayers * len(pat))]
+    return ([pat[i % len(pat)] for i in range(cfg.num_superlayers * len(pat))]
+            + ["mamba2"] * cfg.hybrid_tail_layers)
 
 
 def _window(cfg: ArchConfig, kind: str) -> int:
@@ -87,11 +102,7 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     def zeros():
         return torch.zeros((d,), dtype=torch.float32, device=device)
 
-    params: Params = {
-        "embed": init_weight((vp, d), dtype, generator, device, scale=1.0),
-        "head": init_weight((d, vp), dtype, generator, device),
-        "final_norm": zeros(), "layers": []}
-    for kind in layer_kinds(cfg):
+    def attn_layer(kind):
         layer = {"norm1": zeros(),
                  "attn": init_attn(cfg, generator, device, dtype),
                  "norm2": zeros()}
@@ -99,8 +110,33 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
             layer["moe"] = moe_mod.init_moe(cfg, generator, device, dtype)
         else:
             layer["mlp"] = init_mlp(cfg, generator, device, dtype)
-        params["layers"].append(layer)
+        return layer
+
+    def layer(kind):
+        if kind == "mamba2":
+            return {"norm1": zeros(),
+                    "mamba": m2.init_mamba2(cfg, generator, device, dtype)}
+        if kind == "rwkv6":
+            return {"norm1": zeros(), "norm2": zeros(),
+                    "rwkv": rk.init_rwkv6(cfg, generator, device, dtype)}
+        if kind == "shared_attn":
+            return {}                 # params["shared_attn"] serves it
+        return attn_layer(kind)
+
+    params: Params = {
+        "embed": init_weight((vp, d), dtype, generator, device, scale=1.0),
+        "head": init_weight((d, vp), dtype, generator, device),
+        "final_norm": zeros(),
+        "layers": [layer(kind) for kind in layer_kinds(cfg)]}
+    if "shared_attn" in cfg.superlayer_pattern:
+        params["shared_attn"] = attn_layer("shared_attn")
     return params
+
+
+def block_params(kind: str, p: Params, params: Params) -> Params:
+    """A layer's parameters: its own dict, or for a ``shared_attn`` layer
+    the one shared block's."""
+    return params["shared_attn"] if kind == "shared_attn" else p
 
 
 def ffn(kind: str, h: torch.Tensor, p: Params, cfg: ArchConfig,
@@ -138,20 +174,38 @@ def _kv_to_cache(k: torch.Tensor, v: torch.Tensor,
     return {"k": kc, "v": vc, "pos": posc.expand(b, window)}
 
 
+def prefill_block(kind: str, x: torch.Tensor, p: Params, cfg: ArchConfig,
+                  rt: RuntimeCfg):
+    """One layer over the prompt: (x, the layer's decode cache)."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind == "mamba2":
+        o, (hs, conv) = m2.mamba2_block_with_state(h, p["mamba"], cfg, rt)
+        return x + o, {"h": hs, "conv": conv}
+    if kind == "rwkv6":
+        o, (S, prev_tm) = rk.rwkv6_block_with_state(h, p["rwkv"], cfg, rt)
+        x = x + o
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + rk.rwkv6_channel_mix(h2, p["rwkv"], cfg, rt)
+        return x, {"S": S, "prev_tm": prev_tm, "prev_cm": h2[:, -1:, :]}
+    window = _window(cfg, kind)
+    a, (k, v) = attn_mod.attention_block(h, p["attn"], cfg, rt,
+                                         window=window, return_kv=True)
+    x = x + a
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + ffn(kind, h, p, cfg, rt), _kv_to_cache(k, v, window)
+
+
 def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
             rt: RuntimeCfg = DEFAULT_RT):
-    """tokens (B, S) → (last-token logits (B, Vp) f32, per-layer caches)."""
+    """tokens (B, S) → (last-token logits (B, Vp) f32, per-layer caches).
+    A recurrent stack's prompt must fit one scan chunk or be a multiple of
+    it (``min(rt.ssm_chunk, cfg.ssm_chunk)``), as in the reference."""
     x = embed_tokens(tokens, params["embed"]).to(rt.act_dtype)
     caches: Caches = []
     for kind, p in zip(layer_kinds(cfg), params["layers"]):
-        window = _window(cfg, kind)
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        a, (k, v) = attn_mod.attention_block(h, p["attn"], cfg, rt,
-                                             window=window, return_kv=True)
-        caches.append(_kv_to_cache(k, v, window))
-        x = x + a
-        h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + ffn(kind, h, p, cfg, rt)
+        x, cache = prefill_block(kind, x, block_params(kind, p, params),
+                                 cfg, rt)
+        caches.append(cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(x[:, -1], params["head"], cfg.vocab_size,
                        policy=ex.policy_from(cfg, rt))
@@ -309,7 +363,8 @@ def _dense_attn(caches: Caches, posb: torch.Tensor, cfg: ArchConfig,
     b = posb.shape[0]
     rows = {}
     for kind, c in zip(layer_kinds(cfg), caches):
-        if paged_attn is not None and kind in PAGED_KINDS:
+        if kind in STATE_KINDS or (paged_attn is not None
+                                   and kind in PAGED_KINDS):
             continue
         window = _window(cfg, kind)
         key = (c["k"].shape[1], window)
@@ -342,7 +397,22 @@ def _decode(params: Params, tokens: torch.Tensor, caches: Caches, pos,
     attn = _dense_attn(caches, posb, cfg, rt, paged)
     x = embed_tokens(tokens, params["embed"]).to(rt.act_dtype)
     for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
+        p = block_params(kind, p, params)
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        if kind == "mamba2":
+            o, (cache["h"], cache["conv"]) = m2.mamba2_decode(
+                h, p["mamba"], cfg, (cache["h"], cache["conv"]), rt)
+            x = x + o
+            continue
+        if kind == "rwkv6":
+            o, (cache["S"], cache["prev_tm"]) = rk.rwkv6_decode(
+                h, p["rwkv"], cfg, (cache["S"], cache["prev_tm"]), rt)
+            x = x + o
+            h = rms_norm(x, p["norm2"], cfg.norm_eps)
+            o, cache["prev_cm"] = rk.rwkv6_channel_mix_decode(
+                h, p["rwkv"], cfg, cache["prev_cm"], rt)
+            x = x + o
+            continue
         x = x + attn(kind, h, p["attn"], cache)
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         x = x + ffn(kind, h, p, cfg, rt)
@@ -387,6 +457,25 @@ def window_layers(caches: Caches, cfg: ArchConfig) -> Caches:
             if kind == "attn_local"]
 
 
+def state_layers(caches: Caches, cfg: ArchConfig) -> Caches:
+    """The recurrent layers' caches (:data:`STATE_KINDS`): every decode
+    step replaces their leaves whole."""
+    return [c for kind, c in zip(layer_kinds(cfg), caches)
+            if kind in STATE_KINDS]
+
+
+def snapshot_states(states: Caches) -> Caches:
+    """The state leaves as they stand: references, not copies (a step
+    replaces a leaf and leaves the old tensor as it was)."""
+    return [dict(c) for c in states]
+
+
+def restore_states(states: Caches, snap: Caches) -> None:
+    """Put a :func:`snapshot_states` back."""
+    for c, old in zip(states, snap):
+        c.update(old)
+
+
 def save_window_rows(win: Caches, posb: torch.Tensor):
     """The rows a decode step at ``posb`` is about to overwrite in each
     rolling window, ``posb % w`` of each slot: (rows, [{k, v, pos} of
@@ -423,11 +512,11 @@ def restore_window_rows(win: Caches, log, undo: Optional[torch.Tensor] = None
 
 
 def _rollback_caches(caches: Caches, n_acc: torch.Tensor, posb: torch.Tensor,
-                     k: int, cfg: ArchConfig, log,
+                     k: int, cfg: ArchConfig, log, snaps: List[Caches],
                      page_map: Optional[torch.Tensor] = None) -> None:
     """Bring a k-step verify's caches, in place, to each slot's state after
     its step ``n_acc``, as the reference's snapshot selection does. The
-    two leaf classes differ:
+    leaf classes differ:
 
     * **Append leaves** (the :data:`PAGED_KINDS` K/V/pos): row ``posb + j``
       holds step j's write only, so every row above ``posb + n_acc`` goes
@@ -437,19 +526,28 @@ def _rollback_caches(caches: Caches, n_acc: torch.Tensor, posb: torch.Tensor,
       Pooled ``(pages + 1, page_size, ...)``: each rejected step's (page,
       offset) row is scattered to the init values; accepted steps and
       unmapped or out-of-range positions go to the trash page.
-    * **State leaves** (the rolling windows): a step overwrites the row of
-      the position ``window`` before its own, which no mask recovers.
-      The reference keeps a snapshot of the whole cache per step; the port
-      keeps the rows each step overwrote (``log``, from
-      :func:`save_window_rows`) and puts back those of the rejected steps
-      ``j > n_acc``, newest first. The window ends bit-equal to the
-      reference's snapshot at step ``n_acc``.
+    * **Rolling windows**: a step overwrites the row of the position
+      ``window`` before its own, which no mask recovers. The reference
+      keeps a snapshot of the whole cache per step; the port keeps the
+      rows each step overwrote (``log``, from :func:`save_window_rows`)
+      and puts back those of the rejected steps ``j > n_acc``, newest
+      first. The window ends bit-equal to the reference's snapshot at step
+      ``n_acc``.
+    * **Recurrent states** (:data:`STATE_KINDS`): each step replaces them
+      whole, so ``snaps[j]`` (:func:`snapshot_states` after step j) holds
+      references to step j's tensors; each slot takes its row of
+      ``snaps[n_acc]``, as the reference's per-slot gather does.
     """
     kinds = layer_kinds(cfg)
     append = [c for kind, c in zip(kinds, caches) if kind in PAGED_KINDS]
     j = torch.arange(k, device=posb.device)
     restore_window_rows(window_layers(caches, cfg), log,
                         j[None, :] > n_acc[:, None])
+    slots = torch.arange(posb.shape[0], device=posb.device)
+    pick = n_acc.long()
+    for li, c in enumerate(state_layers(caches, cfg)):
+        for key in c:
+            c[key] = torch.stack([s[li][key] for s in snaps])[pick, slots]
     if not append:
         return
     if page_map is None:
@@ -493,7 +591,8 @@ def verify_decode(params: Params, tokens_seq: torch.Tensor, caches: Caches,
     dev = tokens_seq.device
     posb = _positions(pos, b, dev)
     win = window_layers(caches, cfg)
-    greedy, logits, log = [], [], []
+    states = state_layers(caches, cfg)
+    greedy, logits, log, snaps = [], [], [], []
     for j in range(k):
         tok = tokens_seq[:, j:j + 1].to(torch.int32)
         log.append(save_window_rows(win, posb + j))
@@ -502,6 +601,7 @@ def verify_decode(params: Params, tokens_seq: torch.Tensor, caches: Caches,
         else:
             lg, caches = paged_decode_step(params, tok, caches, posb + j,
                                            page_map, cfg, rt)
+        snaps.append(snapshot_states(states))
         greedy.append(torch.argmax(lg, dim=-1).to(torch.int32))
         logits.append(lg)
     g = torch.stack(greedy, dim=1)                               # (B, k)
@@ -518,7 +618,7 @@ def verify_decode(params: Params, tokens_seq: torch.Tensor, caches: Caches,
         torch.int32)
     next_tok = torch.gather(g, 1, n_acc[:, None].long())
     page_map = None if page_map is None else page_map.to(device=dev)
-    _rollback_caches(caches, n_acc, posb, k, cfg, log, page_map)
+    _rollback_caches(caches, n_acc, posb, k, cfg, log, snaps, page_map)
     return next_tok, g, n_acc, caches, logits
 
 
@@ -572,16 +672,29 @@ def _rows(n: int, batch: int, cfg: ArchConfig, dtype, device
 
 def _block_cache(kind: str, batch: int, max_len: int, cfg: ArchConfig,
                  dtype, device) -> Dict[str, torch.Tensor]:
-    """One layer's dense cache: ``max_len`` rows per slot, or the rolling
-    window's ``min(window, max_len)``."""
+    """One layer's dense cache: ``max_len`` rows per slot, the rolling
+    window's ``min(window, max_len)``, or a recurrent layer's zeroed
+    state (f32 but rwkv6's ``prev`` rows, in ``dtype``)."""
     if kind == "attn_local":
         return _rows(min(cfg.window_size, max_len), batch, cfg, dtype, device)
+    if kind == "mamba2":
+        h, conv = m2.init_mamba2_state(batch, cfg, device)
+        return {"h": h, "conv": conv}
+    if kind == "rwkv6":
+        d, hd = cfg.d_model, cfg.ssm_head_dim
+        return {"S": torch.zeros((batch, d // hd, hd, hd),
+                                 dtype=torch.float32, device=device),
+                "prev_tm": torch.zeros((batch, 1, d), dtype=dtype,
+                                       device=device),
+                "prev_cm": torch.zeros((batch, 1, d), dtype=dtype,
+                                       device=device)}
     return _rows(max_len, batch, cfg, dtype, device)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Caches:
-    """Zeroed K/V and ``pos = -1`` (unwritten) rows, one dict per layer."""
+    """Zeroed K/V and ``pos = -1`` (unwritten) rows, or a zeroed state,
+    one dict per layer."""
     check_supported(cfg)
     return [_block_cache(kind, batch, max_len, cfg, dtype, device)
             for kind in layer_kinds(cfg)]
@@ -594,7 +707,8 @@ def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
     :data:`PAGED_KINDS` layer become pools of ``pages + 1`` physical pages
     (the extra one is the trash page, see ``_paged_decode_attn``) of
     ``page_size`` rows each, shared by all ``batch`` slots: k/v zeroed,
-    pos -1. The rolling windows stay slot-indexed, as in ``init_cache``.
+    pos -1. The rolling windows and the recurrent states stay
+    slot-indexed, as in ``init_cache``.
     Requires ``max_len % page_size == 0`` so the gathered layout matches
     the dense one row for row."""
     check_supported(cfg)

@@ -16,8 +16,8 @@ one (a request the pool cannot grow finishes truncated), and freed pages are
 scrubbed before reuse. Greedy paged decode equals dense decode token for
 token. ``export_slot``/``import_slot`` hand one in-flight request, with its
 cache state, to another session: the whole slot row on dense sessions, only
-the pages in use on paged ones (a rolling window, slot-indexed in both
-layouts, always moves whole).
+the pages in use on paged ones (a rolling window or a recurrent state,
+slot-indexed in both layouts, always moves whole).
 
 Under a sparse24 policy the session prunes and packs the eligible weights
 once, at construction, after moving them to its device
@@ -43,13 +43,14 @@ The stream rule: the session's slot work (admit's prefill and cache write,
 the scrub on free, ``export_slot``/``import_slot``) runs on the caller's
 current stream; a lane's stream first waits on the caller's stream, and
 every tensor made on the caller's stream that a lane reads is marked in
-use there (``record_stream``). Host state (tokens, positions, completions)
+use there (``record_stream``), the recurrent state leaves that a step
+replaces among them. Host state (tokens, positions, completions)
 changes only in the join, after the host has waited on the lane, so the
 token stream is the same whatever other lanes do in between. Nothing
 between dispatch and join reads a device tensor on the host.
 
 Where the reference donates the cache to its jitted helpers, the port
-updates the cache tensors in place. Not ported: sampling (``temperature >
+updates the K/V tensors in place. Not ported: sampling (``temperature >
 0``; the port serves greedy, the only mode whose tokens can be held
 against the reference). ``seed`` is accepted for the reference's
 signature; greedy decode draws nothing from it.
@@ -73,7 +74,7 @@ from repro_torch.kernels import paged_attention  # noqa: F401 (hopper_paged)
 from repro_torch.models.layers import DEFAULT_RT, RuntimeCfg
 from repro_torch.models.transformer import (
     PAGED_KINDS, Caches, decode_step, init_cache, init_paged_cache,
-    layer_kinds, paged_decode_step, prefill)
+    layer_kinds, paged_decode_step, prefill, state_layers)
 
 resolve_device = cc.resolve_device
 
@@ -159,7 +160,7 @@ class SlotExport:
     :meth:`ServeSession.import_slot`; greedy decode resumes exactly on a
     session with the same config, ``max_len`` and cache layout."""
     request: Request
-    caches: Caches                   # per layer: {k, v, pos}
+    caches: Caches                   # per layer: {k, v, pos} or a state
     pos: int
     token: int
     # Paged handoff metadata (0/0 on dense exports): paged leaves are
@@ -174,39 +175,73 @@ def export_nbytes(export: SlotExport) -> int:
                for layer in export.caches for t in layer.values())
 
 
+# Cache-leaf classes of the slot helpers, as in the reference: k/v/pos hold
+# a row per position; every other leaf (a recurrent layer's state) is the
+# slot's whole value: replaced on admission and import, zeroed on free,
+# exported whole.
+_SEQ_LEAVES = ("k", "v", "pos")
+
+
+def _check_state_rows(full: Caches, new: Caches) -> None:
+    """Refuse, before anything is written, a prefill state that does not
+    broadcast to its slot's row, as the reference's ``.at[slot].set``
+    does: a mamba2 conv state of S < 3 rows (a prompt of S tokens) is
+    broadcast at S = 1 and refused at S = 2."""
+    for f, n in zip(full, new):
+        for key, leaf in n.items():
+            if key in _SEQ_LEAVES:
+                continue
+            row, dst = tuple(leaf.shape[1:]), tuple(f[key].shape[1:])
+            ok = len(row) <= len(dst) and all(
+                a in (1, b) for a, b in zip(row[::-1], dst[::-1]))
+            if not ok:
+                raise ValueError(
+                    f"Incompatible shapes for broadcasting: {row} and "
+                    f"requested shape {dst} (cache leaf {key!r})")
+
+
+def _write_layer(f: Dict[str, torch.Tensor], n: Dict[str, torch.Tensor],
+                 slot: int) -> None:
+    for key, leaf in n.items():
+        row = leaf[0].to(f[key].dtype)
+        if key in _SEQ_LEAVES:
+            f[key][slot, :row.shape[0]] = row
+        else:
+            f[key][slot] = row
+
+
 def _write_slot_cache(full: Caches, new: Caches, slot: int) -> None:
     """Insert a batch-1 prefill cache into ``slot``: k/v/pos write their
     first S rows (the prompt's positions; a rolling window's rows as the
-    prefill rolled them)."""
+    prefill rolled them), a state leaf replaces the slot's row."""
+    _check_state_rows(full, new)
     for f, n in zip(full, new):
-        for key in ("k", "v", "pos"):
-            row = n[key][0]
-            f[key][slot, :row.shape[0]] = row.to(f[key].dtype)
+        _write_layer(f, n, slot)
 
 
 def _restore_slot_cache(full: Caches, state: Caches, slot: int) -> None:
     """Write one exported slot's cache state (each leaf the slot's whole
     row) into ``slot``: the receiving half of a dense handoff."""
     for f, s in zip(full, state):
-        for key in ("k", "v", "pos"):
-            f[key][slot] = s[key].to(f[key].dtype)
+        for key, row in s.items():
+            f[key][slot] = row.to(f[key].dtype)
 
 
 def _clear_slot_cache(caches: Caches, slot: int) -> None:
-    """Reset ``slot`` to its init state: k/v zeroed, pos rows -1 (unwritten
-    to the decode mask). A freed slot keeps nothing of its occupant."""
+    """Reset ``slot`` to its init state: k/v and states zeroed, pos rows -1
+    (unwritten to the decode mask). A freed slot keeps nothing of its
+    occupant."""
     for c in caches:
-        c["k"][slot] = 0
-        c["v"][slot] = 0
-        c["pos"][slot] = -1
+        for key, leaf in c.items():
+            leaf[slot] = -1 if key == "pos" else 0
 
 
 # -- paged-cache twins of the slot helpers ----------------------------------
 # ``pooled[i]`` says whether layer i's leaves are page pools (its kind is
-# in PAGED_KINDS); the others (rolling windows) keep the slot-indexed
-# layout and take the dense helpers' path. ``phys`` vectors are padded to
-# the per-slot table width with the trash page's index; trash writes only
-# ever carry scrub values.
+# in PAGED_KINDS); the others (rolling windows, recurrent states) keep the
+# slot-indexed layout and take the dense helpers' path. ``phys`` vectors
+# are padded to the per-slot table width with the trash page's index;
+# trash writes only ever carry scrub values.
 
 def _paged_write_prompt(pooled: List[bool], full: Caches, new: Caches,
                         slot: int, phys: torch.Tensor) -> None:
@@ -214,13 +249,14 @@ def _paged_write_prompt(pooled: List[bool], full: Caches, new: Caches,
     padded to ``max_len`` (k/v with zeros, pos with -1, the scrubbed-page
     values), split into pages and written to the slot's physical pages
     ``phys`` (max_pages,), unallocated entries naming the trash page; a
-    slot-indexed layer writes its rows into ``slot``."""
+    slot-indexed layer writes into ``slot``."""
+    _check_state_rows(full, new)
     mp = phys.shape[0]
     for f, n, is_pool in zip(full, new, pooled):
         if not is_pool:
-            _write_slot_cache([f], [n], slot)
+            _write_layer(f, n, slot)
             continue
-        for key in ("k", "v", "pos"):
+        for key in _SEQ_LEAVES:
             pool, row = f[key], n[key][0]
             ps = pool.shape[1]
             slab = torch.full((mp * ps,) + row.shape[1:],
@@ -249,12 +285,16 @@ def _paged_take_slot(pooled: List[bool], caches: Caches, slot: int,
                      page_ids: List[int]) -> Caches:
     """One slot's state, gathered for export: per pooled layer the pages
     in use, k/v/pos shaped (n_used, page_size, ...); per slot-indexed
-    layer the slot's row. Copies, not views."""
-    idx = torch.as_tensor(page_ids, dtype=torch.long,
-                          device=caches[0]["k"].device)
-    return [{key: c[key][idx] if is_pool else c[key][slot].clone()
-             for key in ("k", "v", "pos")}
-            for c, is_pool in zip(caches, pooled)]
+    layer the slot's row of each leaf. Copies, not views."""
+    out = []
+    for c, is_pool in zip(caches, pooled):
+        if is_pool:
+            idx = torch.as_tensor(page_ids, dtype=torch.long,
+                                  device=c["k"].device)
+            out.append({key: c[key][idx] for key in _SEQ_LEAVES})
+        else:
+            out.append({key: leaf[slot].clone() for key, leaf in c.items()})
+    return out
 
 
 def _paged_put_slot(pooled: List[bool], caches: Caches, state: Caches,
@@ -262,15 +302,14 @@ def _paged_put_slot(pooled: List[bool], caches: Caches, state: Caches,
     """Scatter an exported slot's pages into freshly allocated ones, and
     its slot-indexed rows into ``slot``: the receiving half of an
     O(pages) handoff."""
-    idx = torch.as_tensor(page_ids, dtype=torch.long,
-                          device=caches[0]["k"].device)
     for c, s, is_pool in zip(caches, state, pooled):
-        for key in ("k", "v", "pos"):
-            val = s[key].to(device=c[key].device, dtype=c[key].dtype)
-            if is_pool:
-                c[key][idx] = val
-            else:
-                c[key][slot] = val
+        if not is_pool:
+            _restore_slot_cache([c], [s], slot)
+            continue
+        idx = torch.as_tensor(page_ids, dtype=torch.long,
+                              device=c["k"].device)
+        for key in _SEQ_LEAVES:
+            c[key][idx] = s[key].to(device=c[key].device, dtype=c[key].dtype)
 
 
 @dataclasses.dataclass
@@ -395,7 +434,7 @@ class ServeSession:
         else:
             self.page_size, self.pages = 0, 0
             self.pager = None
-            self._pooled = [False] * cfg.num_layers
+            self._pooled = [False] * len(layer_kinds(cfg))
             self.caches = init_cache(cfg, batch_slots, max_len,
                                      device=self.device)
             self.step_fn = make_serve_step(cfg, rt)
@@ -562,7 +601,7 @@ class ServeSession:
                                   pages_moved=len(page_ids),
                                   handoff_bytes=export_nbytes(out))
         else:
-            state = [{key: c[key][slot].clone() for key in ("k", "v", "pos")}
+            state = [{key: leaf[slot].clone() for key, leaf in c.items()}
                      for c in self.caches]
             out = SlotExport(request=req, caches=state, pos=pos, token=token)
         self.free_slot(slot)
@@ -608,11 +647,11 @@ class ServeSession:
         # pages in use, not the pool); slot-indexed leaves the whole slot
         # row (a rolling window's included)
         ours = [(key, tuple(c[key].shape[1:]))
-                for c in self.caches for key in ("k", "v", "pos")]
+                for c in self.caches for key in sorted(c)]
         theirs = [(key, tuple(s[key].shape[1:] if is_pool
                               else s[key].shape))
                   for s, is_pool in zip(export.caches, self._pooled)
-                  for key in ("k", "v", "pos")]
+                  for key in sorted(s)]
         if len(export.caches) != len(self.caches) or ours != theirs:
             raise ValueError(
                 "cache layout mismatch: the exporting session's slot state "
@@ -725,11 +764,15 @@ class ServeSession:
                         overlap_group: int = -1) -> DecodeTicket:
         """Dispatch half of a decode step: page bookkeeping, then the step
         enqueued on ``lane``'s stream (the session's own lane by default)
-        without waiting, and a :class:`DecodeTicket` back. The cache is
-        written in place by the enqueued step; host state (tokens,
-        positions, completions) is touched only by :meth:`join_decode`.
-        A speculative step runs its draft chain on a second lane, and the
-        verify's stream waits on the draft's event."""
+        without waiting, and a :class:`DecodeTicket` back. The enqueued
+        step writes the K/V rows in place and replaces each recurrent
+        state leaf with a new tensor on the lane's stream; host state
+        (tokens, positions, completions) is touched only by
+        :meth:`join_decode`. The state leaves it replaces are marked in
+        use on the lane, so the allocator does not hand their blocks to
+        the caller's stream before the lane has read them. A speculative
+        step runs its draft chain on a second lane, and the verify's
+        stream waits on the draft's event."""
         if self._inflight is not None:
             raise RuntimeError(
                 "decode already in flight: join_decode the previous "
@@ -750,14 +793,16 @@ class ServeSession:
         posv = torch.as_tensor(self.slot_pos.astype(np.int64),
                                device=self.device)
         paged = (self._page_map,) if self.paged else ()
+        states = [t for c in state_layers(self.caches, self.cfg)
+                  for t in c.values()]
         if k > 1:
             active = torch.as_tensor([s is not None for s in self.slots],
                                      device=self.device)
             draft, verify = self._spec_fns_for(k)
             dlane = self._draft_lane_for()
             tokens, caches = self.tokens, self.caches
-            _in_use_on(dlane, posv, tokens, *paged)
-            _in_use_on(lane, posv, active, *paged)
+            _in_use_on(dlane, posv, tokens, *paged, *states)
+            _in_use_on(lane, posv, active, *paged, *states)
 
             def verify_thunk():
                 seq = dh.result
@@ -779,7 +824,7 @@ class ServeSession:
             self._inflight = ticket
             return ticket
         tokens, caches = self.tokens, self.caches
-        _in_use_on(lane, posv, tokens, *paged)
+        _in_use_on(lane, posv, tokens, *paged, *states)
         with self._policy_scope():
             handle = lane.dispatch(
                 lambda: self.step_fn(self.params, tokens, caches, posv,

@@ -27,11 +27,14 @@ def _need_cuda():
 # at M = 128, and ragged M, N and K: with and without 16-byte aligned rows.
 SPLIT_AND_RAGGED = [(4, 4096, 1024), (128, 4096, 1024), (77, 4000, 1000),
                     (33, 200, 72), (128, 1032, 136)]
+# zamba2-1.2b's w_B / w_C / w_dt: N = 64, one tile wide, at decode and at a
+# 512-token prefill
+NARROW_N = [(4, 2048, 64), (512, 2048, 64)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(4, 256, 1000), (77, 200, 72), (1, 8, 3)]
-                         + SPLIT_AND_RAGGED)
+                         + SPLIT_AND_RAGGED + NARROW_N)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn,
                                    torch.float8_e5m2])
 def test_cuda_gemm_kernel_matches_plain(m, k, n, dtype):
@@ -108,21 +111,29 @@ def test_cuda_expert_matmul_is_each_expert_alone(precision):
                                atol=2e-2)
 
 
+# (group, hd, s, kv heads): two kv heads at every S, head dim and group,
+# and zamba2-1.2b's shared-attention prefill (32 heads of 64, group 1)
+FLASH_CASES = [(g, hd, s, 2) for g in (1, 4, 8) for hd in (32, 64, 128, 256)
+               for s in (1, 77, 128, 200, 512, 1040)] \
+    + [(1, 64, 128, 32), (1, 64, 512, 32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [1, 77, 128, 200, 512, 1040])
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
-@pytest.mark.parametrize("group", [1, 4, 8])
-def test_cuda_flash_kernel_matches_plain(s, hd, group):
-    """Causal, two kv heads of ``group`` query heads each; ragged S masks a
-    part tile. P is rounded to bf16 for P V: a few 1e-3 on outputs of order
-    1, under 2e-2. A second call gives the same bits (no split, no
-    atomics)."""
+@pytest.mark.parametrize(
+    "group,hd,s,kvh", FLASH_CASES,
+    ids=[f"{g}-{hd}-{s}" + (f"-kvh{kvh}" if kvh != 2 else "")
+         for g, hd, s, kvh in FLASH_CASES])
+def test_cuda_flash_kernel_matches_plain(s, hd, group, kvh):
+    """Causal, ``kvh`` kv heads of ``group`` query heads each; ragged S
+    masks a part tile. P is rounded to bf16 for P V: a few 1e-3 on outputs
+    of order 1, under 2e-2. A second call gives the same bits (no split,
+    no atomics)."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    q = torch.randn((1, 2 * group, s, hd), generator=gen,
+    q = torch.randn((1, kvh * group, s, hd), generator=gen,
                     device="cuda").bfloat16()
-    k = torch.randn((1, 2, s, hd), generator=gen, device="cuda").bfloat16()
-    v = torch.randn((1, 2, s, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((1, kvh, s, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((1, kvh, s, hd), generator=gen, device="cuda").bfloat16()
     before = fa.LAUNCHES
     got = fa.flash_attention(q, k, v, causal=True)
     assert fa.LAUNCHES == before + 1
@@ -161,7 +172,8 @@ def test_cuda_quantization_matches_the_cpu_bytes():
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(4, 512, 1024), (77, 4000, 1000),
                                    (3, 24, 40), (128, 256, 384),
-                                   (4, 4096, 1024), (128, 4096, 1024)])
+                                   (4, 4096, 1024), (128, 4096, 1024)]
+                         + NARROW_N)
 @pytest.mark.parametrize("vdtype", [torch.bfloat16, torch.float8_e4m3fn,
                                     torch.float8_e5m2])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -405,11 +417,11 @@ def test_cuda_split_launches_on_two_streams_keep_their_bits(kernel):
 # Lanes: sessions and the speculative draft on CUDA streams
 # ---------------------------------------------------------------------------
 
-def _lane_model():
+def _lane_model(arch="llama3-8b"):
     from repro_torch.configs import get_reduced
     from repro_torch.models import init_params
     from repro_torch.models.layers import RuntimeCfg
-    cfg = get_reduced("llama3-8b")
+    cfg = get_reduced(arch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     return cfg, init_params(cfg, gen, device="cuda"), \
         RuntimeCfg(use_pallas=True)
@@ -447,13 +459,14 @@ def test_cuda_lane_runs_its_thunk_on_its_stream():
 
 
 @pytest.mark.cuda
-def test_cuda_two_sessions_on_two_lanes_keep_their_bits():
+@pytest.mark.parametrize("arch", ["llama3-8b", "zamba2-1.2b"])
+def test_cuda_two_sessions_on_two_lanes_keep_their_bits(arch):
     """Two sessions decoding at once, each on a lane (stream) of its own,
     give every token and logit bit of the two decoding one after the
-    other."""
+    other; zamba2-1.2b's steps replace their recurrent state leaves."""
     _need_cuda()
     from repro_torch.core import concurrency as tcc
-    cfg, params, rt = _lane_model()
+    cfg, params, rt = _lane_model(arch)
     alone = []
     for uids in ((0, 1), (2, 3)):
         sess = _lane_session(cfg, params, rt, uids)
@@ -477,6 +490,52 @@ def test_cuda_two_sessions_on_two_lanes_keep_their_bits():
         assert {r.uid: r.out for r in sess.completed} == want_tok
         assert len(got) == len(want_logits)
         assert all(_same_bits(g, w) for g, w in zip(got, want_logits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("speculative", [None, {
+    "k": 2, "draft_policy": "fp8:dense:hopper"}], ids=["plain", "spec"])
+def test_cuda_state_leaves_outlive_a_slow_lane(speculative):
+    """A step replaces each recurrent state leaf as it is enqueued, so the
+    old leaf (made on the caller's stream) loses its last reference while
+    the lane has not read it yet. With the lane held back (~1 s, longer
+    than the host takes to enqueue a step) and the caller's stream filling
+    fresh blocks of the same sizes with NaN, the tokens and logits are
+    still those of the undisturbed run: the allocator may not hand the
+    old leaves' blocks out before the lane is done. Only the first step's
+    leaves come from the caller's stream (admission); later ones are the
+    lane's own. The verify runs k = 2 steps: with three, the launches
+    queued behind the held lane fill the stream's queue, the host waits
+    for the lane at the third step's launches, and the lane has read the
+    old leaves before the caller's stream gets to them."""
+    _need_cuda()
+    from repro_torch.core import concurrency as tcc
+    from repro_torch.models.transformer import state_layers
+    cfg, params, rt = _lane_model("zamba2-1.2b")
+    kw = {} if speculative is None else {"speculative": speculative}
+    calm = _lane_session(cfg, params, rt, (0, 1), **kw)
+    want = []
+    while calm.n_active:
+        calm.decode_once()
+        want.append(calm.last_logits.clone())
+    sess = _lane_session(cfg, params, rt, (0, 1), **kw)
+    lane = tcc.ExecutionLane("slow")
+    got = []
+    while sess.n_active:
+        shapes = [t.shape for c in state_layers(sess.caches, cfg)
+                  for t in c.values()]
+        if not got:
+            lane.dispatch(lambda: torch.cuda._sleep(2_000_000_000))
+        t = sess.dispatch_decode(lane)
+        junk = [torch.full(sh, float("nan"), device="cuda")
+                for sh in shapes for _ in range(32)]
+        sess.join_decode(t)
+        del junk
+        got.append(sess.last_logits.clone())
+    assert {r.uid: r.out for r in sess.completed} == \
+        {r.uid: r.out for r in calm.completed}
+    assert len(got) == len(want)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -135,10 +135,12 @@ def test_handoff_carries_the_rolling_window(paged):
 
 
 def test_block_kinds_admitted_and_refused():
-    """The attention-style stacks are admitted, with no state blocks for
-    the pager to account (their windows are slot-indexed K/V, as in JAX);
-    the recurrent ones (mamba2, rwkv6, zamba2's hybrid) still refuse,
-    naming the next slice."""
+    """Every arch's block kinds are admitted: the attention-style stacks
+    with no state blocks for the pager to account (their windows are
+    slot-indexed K/V, as in JAX), and the recurrent ones (rwkv6;
+    zamba2's mamba2, shared attention and hybrid tail) with JAX's state
+    block size. A block kind the port does not know is refused."""
+    import types
     from repro.core import paging as jpaging
     from repro_torch.core import paging as tpaging
     for arch in ARCHS + ["llama3-8b"]:
@@ -146,7 +148,13 @@ def test_block_kinds_admitted_and_refused():
         assert tpaging.state_block_tokens(t_get_reduced(arch)) == 0 == \
             jpaging.state_block_tokens(get_reduced(arch))
     for arch in ("rwkv6-3b", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            tt.check_supported(t_get_reduced(arch))
-        with pytest.raises(NotImplementedError):
-            tt.init_cache(t_get_reduced(arch), 1, 8)
+        cfg = t_get_reduced(arch)
+        tt.check_supported(cfg)
+        assert tpaging.state_block_tokens(cfg) == \
+            jpaging.state_block_tokens(get_reduced(arch)) > 0
+        caches = tt.init_cache(cfg, 1, 8)
+        assert len(caches) == len(tt.layer_kinds(cfg))
+        assert any(kind in tt.STATE_KINDS for kind in tt.layer_kinds(cfg))
+    with pytest.raises(NotImplementedError, match="cross_attn"):
+        tt.check_supported(types.SimpleNamespace(
+            name="x", superlayer_pattern=("attn_dense", "cross_attn")))

@@ -1,5 +1,8 @@
 """Speculative decoding in the port against plain greedy decode and against
-the JAX package's speculative session, on the reduced llama3-8b.
+the JAX package's speculative session, on the reduced llama3-8b, and on the
+MoE, local/global and recurrent stacks (whose states each step replaces
+whole: the draft puts them back, the verify keeps each slot's snapshot at
+its accepted step).
 
 The contract is the reference's: a speculative session commits exactly the
 plain greedy stream (dense and paged, fp8 and fp8:sparse24 drafts, any k,
@@ -628,3 +631,147 @@ def test_window_after_the_draft_and_verify_equals_plain_decode(paged, n_acc):
             np.testing.assert_allclose(got.float().numpy(),
                                        want.float().numpy(), rtol=2 ** -7,
                                        atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent stacks
+# ---------------------------------------------------------------------------
+
+RECURRENT = ["rwkv6-3b", "zamba2-1.2b"]
+
+
+def _recurrent_run(sess, module, arch):
+    """A prompt of one chunk (32), an accept-friendly repeated pair and two
+    short random prompts, through two slots."""
+    cfg = get_reduced(arch)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, 32).astype(np.int32),
+               np.array([7, 11] * 4, np.int32)] \
+        + [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+           for n in (5, 8)]
+    for uid, p in enumerate(prompts):
+        sess.submit(module.Request(uid=uid, prompt=p, max_new=12,
+                                   tenant="ab"[uid % 2]))
+    sess.run()
+    return {r.uid: list(r.out) for r in sess.completed}
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_speculative_equals_plain_and_jax(arch, paged):
+    """A k = 4 fp8 draft over the recurrent states: the port commits its
+    plain greedy stream and JAX's speculative session's, with JAX's
+    acceptance totals; some drafts are rejected, so the verify's state
+    rollback ran."""
+    spec = {"k": 4, "draft_policy": "fp8"}
+    plain = _recurrent_run(_block_sessions(arch, paged, None)[0], tsl, arch)
+    port, ref = _block_sessions(arch, paged, spec)
+    got = _recurrent_run(port, tsl, arch)
+    want = _recurrent_run(ref, jsl, arch)
+    assert got == plain == want
+    assert port.spec_totals == ref.spec_totals
+    acc = sum(t["accepted"] for t in port.spec_totals.values())
+    assert 0 < acc < sum(t["drafted"] for t in port.spec_totals.values())
+
+
+def _recurrent_prefilled(arch, paged):
+    """The port's and JAX's f32 sessions with one 32-token request in slot
+    0 after two plain steps; slot 1 idle."""
+    cfg = get_reduced(arch)
+    port, ref = _block_sessions(arch, paged, None)
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, 32) \
+        .astype(np.int32)
+    port.admit(tsl.Request(uid=0, prompt=prompt, max_new=32))
+    ref.admit(jsl.Request(uid=0, prompt=prompt, max_new=32))
+    for _ in range(2):
+        port.decode_once()
+        ref.decode_once()
+    return cfg, port, ref
+
+
+def _state_leaves(caches, cfg):
+    return [(li, key, c[key]) for li, (kind, c) in enumerate(
+        zip(tt.layer_kinds(cfg), caches)) if kind in tt.STATE_KINDS
+        for key in c]
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_draft_leaves_no_recurrent_state_written(arch):
+    """The draft's steps replace every state leaf; when its chain ends the
+    session's cache holds the very tensors it started from, unchanged."""
+    k = 4
+    cfg, port, _ = _recurrent_prefilled(arch, False)
+    pos = torch.as_tensor(port.slot_pos.astype(np.int64))
+    before = _state_leaves(port.caches, cfg)
+    saved = [t.clone() for _, _, t in before]
+    draft = tspv.make_draft_step(port.cfg, port.rt, tex.parse_policy("fp8"),
+                                 k - 1)
+    seq = draft(port.params, port.tokens, port.caches, pos)
+    assert seq.shape == (SLOTS, k)
+    after = _state_leaves(port.caches, cfg)
+    assert len(after) == len(before) > 0
+    for (li, key, t), (_, _, t0), old in zip(after, before, saved):
+        assert t is t0, (li, key)
+        assert torch.equal(_bits(t), _bits(old)), (li, key)
+
+
+@pytest.mark.parametrize("n_acc", [0, 2])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_state_after_the_draft_and_verify_equals_plain_decode(
+        arch, paged, n_acc):
+    """The fp8 draft, then a k = 4 verify whose drafts match plain greedy
+    for ``n_acc`` steps: slot 0's every leaf (state leaves, and the shared
+    attention's rows or pages) bit-equal to ``n_acc + 1`` plain decode
+    steps, the reference's snapshot at step ``n_acc``; and, dense, from
+    JAX's own cache, bridged, the port's rolled-back states within 1e-4 of
+    JAX's ``multi_decode_step``'s."""
+    from repro.models import transformer as jtf
+    k = 4
+    cfg, port, ref = _recurrent_prefilled(arch, paged)
+    pos = torch.as_tensor(port.slot_pos.astype(np.int64))
+    if paged:
+        port.pager.extend_slot(0, int(pos[0]) + k)
+        port._sync_page_map()
+    pm = (port._page_map,) if paged else ()
+    step = tt.paged_decode_step if paged else tt.decode_step
+    plain = _clone(port.caches)
+    tok, greedy = port.tokens, []
+    for j in range(n_acc + 1):
+        logits, _ = step(port.params, tok, plain, pos + j, *pm, port.cfg,
+                         port.rt)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        greedy.append(int(tok[0, 0]))
+    draft = tspv.make_draft_step(port.cfg, port.rt, tex.parse_policy("fp8"),
+                                 k - 1, paged=paged)
+    draft(port.params, port.tokens, port.caches, pos, *pm)
+    bad = (greedy[-1] + 1) % cfg.vocab_size
+    seq = [int(port.tokens[0, 0])] + greedy[:n_acc] + [bad] * (k - 1 - n_acc)
+    seq2 = torch.tensor([seq, [int(port.tokens[1, 0])] + [0] * (k - 1)],
+                        dtype=torch.int32)
+    active = torch.tensor([True, False])
+    multi = tt.paged_multi_decode_step if paged else tt.multi_decode_step
+    _, g, acc, rolled = multi(port.params, seq2, port.caches, pos, active,
+                              *pm, port.cfg, port.rt)
+    assert int(acc[0]) == n_acc and g[0, :n_acc + 1].tolist() == greedy
+    pooled = [paged and kind in tt.PAGED_KINDS for kind in tt.layer_kinds(cfg)]
+    assert all(torch.equal(_bits(x[key][:-1] if pool else x[key][0]),
+                           _bits(y[key][:-1] if pool else y[key][0]))
+               for x, y, pool in zip(rolled, plain, pooled) for key in x)
+    if paged:
+        return
+    from_jax = bridge.caches_from_numpy(jax.tree.map(np.asarray, ref.caches),
+                                        cfg)
+    jpos = jnp.asarray(ref.slot_pos)
+    _, _, jacc, jc = jtf.multi_decode_step(
+        ref.params, jnp.asarray(seq2.numpy()), ref.caches, jpos,
+        jnp.asarray([True, False]), cfg, ref.rt)
+    _, _, acc2, rolled2 = tt.multi_decode_step(
+        port.params, seq2, from_jax, torch.as_tensor(np.array(jpos)).long(),
+        active, cfg, port.rt)
+    assert int(jacc[0]) == int(acc2[0]) == n_acc
+    jl = bridge.caches_from_numpy(jax.tree.map(np.asarray, jc), cfg)
+    for li, key, t in _state_leaves(rolled2, cfg):
+        np.testing.assert_allclose(t.float().numpy(),
+                                   jl[li][key].float().numpy(), rtol=1e-4,
+                                   atol=1e-4)
