@@ -77,6 +77,26 @@ farther from it than 1.5 times the torch backend's), beside the
 sublayer check at LAYER_TOL, the first decode step at LOGIT_TOL and the
 near-tie rule for tokens; launches exact, the paged runs bit-equal.
 
+Then ``[train]``: llama3-8b at full width with 8 of its 32 layers
+(2.80 B params; bf16 weights, f32 masters and moments, 36.45 GiB of
+state), B=4, S=512, ``SyntheticLM`` batches, through
+``runtime/train_loop.make_train_step``: three steps under
+``bf16:dense:hopper`` and ``fp8:dense:hopper`` against the ``torch``
+backend from copies of one init (the losses and, in bf16, each leaf's
+step-0 grad norm within stated tolerances; in fp8 each sublayer of the
+step-0 forward, teacher forced, within a gap that a bf16 forward in its
+place must exceed), one under
+``bf16:sparse24:hopper`` (STE, kernel A) and one under
+``bf16:dense:hopper_sparse24`` (kernel D, the weight given its masked
+gradient), each with its launches as the code implies (every checkpointed
+kernel runs twice per step), its ms per step, tokens/s and peak memory,
+and one profiled step's device busy time, idle share and kernel A's
+share; kernels A and D at the training shapes; a delayed-scaling
+``fp8_linear``; ``launch/train.py`` resumed from its final and from a
+periodic checkpoint (a supervised restart) bit for bit under
+deterministic algorithms; and the
+refusal of autograd through every kernel entry point on the card.
+
 Every kernel is timed by its device time (torch.profiler) with its
 operands out of L2 (rotating copies where they total less than its 50 MB),
 checked against its plain version and for bit-equal repeats, and prints its
@@ -95,6 +115,7 @@ missing, or when any phase fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -163,9 +184,13 @@ L2_BYTES = 50 * 2**20
 def cold_ms(fn, operands, iters: int):
     """Device ms per call of ``fn(*operands)`` with the operands out of L2:
     where they total less than L2_BYTES, the calls rotate through enough
-    copies of them to exceed twice L2. The time is the kernels' own
-    (``device_ms``), so a call that the host issues more slowly than the
-    card runs it is still timed as the card runs it. Returns (ms, copies)."""
+    copies of them to exceed twice L2. Returns (ms, copies, timer). The
+    timer is "profiler" where the time is the kernels' own (``device_ms``),
+    so a call that the host issues more slowly than the card runs it is
+    still timed as the card runs it. Where torch.profiler lost kernel
+    records in every attempt, it is "cuda events" (``time_ms`` over the same
+    rotation), which also counts the gaps in which the card waits for the
+    host."""
     n_bytes = sum(t.numel() * t.element_size() for t in operands)
     n = 1 if n_bytes >= L2_BYTES else -(-2 * L2_BYTES // n_bytes) + 1
     sets = [tuple(operands)] + [tuple(t.clone() for t in operands)
@@ -175,11 +200,12 @@ def cold_ms(fn, operands, iters: int):
     def call():
         return fn(*sets[next(turn) % n])
 
-    for _ in range(5):  # a profile now and then misses kernels
-        ms = device_ms(call, iters)
-        if ms > 0:
-            return ms, n
-    fail("torch.profiler missed kernels in five profiles of one call")
+    ms = device_ms(call, iters)
+    if ms is not None:
+        return ms, n, "profiler"
+    print(f"[smoke] timing {iters} calls with CUDA events instead",
+          flush=True)
+    return time_ms(call, iters), n, "cuda events"
 
 
 def host_us(fn, calls: int = 100) -> float:
@@ -216,30 +242,58 @@ def plan_note(M, N, K, kind, batch: int = 1) -> str:
                                  *extra)[0].describe()
 
 
-def device_ms(fn, iters: int = 50) -> float:
+# Pauses (s) before each new attempt at a trace that lost kernel records.
+# On the H100 torch.profiler now and then records none of a session's
+# kernels, or fewer than ran; in some whole runs it records none in most
+# sessions from the [train] phase on (PERF.md §7).
+PROFILE_WAITS_S = (0.25, 1.0, 4.0)
+
+
+def traced(run, complete, what: str):
+    """``(prof, kernels)``: a torch.profiler trace of ``run()`` (which ends
+    in a device synchronise) and its kernel records, taken again after a
+    pause (PROFILE_WAITS_S) while ``complete(kernels)`` is false. None when
+    every attempt lost records."""
+    from torch.profiler import ProfilerActivity, profile
+    for wait in (0.0,) + PROFILE_WAITS_S:
+        time.sleep(wait)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+        kernels = [e for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if complete(kernels):
+            return prof, kernels
+        print(f"[smoke] the profile of {what} lost kernel records "
+              f"({len(kernels)} recorded); profiling again", flush=True)
+    return None
+
+
+def device_ms(fn, iters: int = 50):
     """Mean device time per call of ``fn``: the summed durations of the
     kernels it launches, from torch.profiler over ``iters`` calls (after
     one warm-up call). Unlike ``time_ms`` it leaves out the gaps in which
     the device waits for the host to issue the next call. Every call
-    launches the same kernels, so a profile in which some kernel was not
-    recorded a whole number of times per call lost events: it gives 0, and
-    ``cold_ms`` profiles again."""
+    launches the same kernels, so a profile that recorded no kernel, or
+    some kernel not a whole number of times per call, lost records and is
+    taken again (``traced``). None when every attempt lost records."""
     import collections
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    counts = collections.Counter(e.name for e in kernels)
-    if any(n % iters for n in counts.values()):
-        return 0.0
-    return sum(e.time_range.end - e.time_range.start for e in kernels) \
+
+    def complete(kernels):
+        counts = collections.Counter(e.name for e in kernels)
+        return bool(counts) and not any(n % iters for n in counts.values())
+    got = traced(run, complete, f"{iters} calls")
+    if got is None:
+        return None
+    return sum(e.time_range.end - e.time_range.start for e in got[1]) \
         / 1e3 / iters
 
 
@@ -347,14 +401,15 @@ def gemm_phase():
                    - fm.fp8_matmul_plain(x, w, out_dtype).float()
                    ).abs().max().item()
             iters = 20 if N > 20000 else 50
-            ms, copies = cold_ms(lambda a, b: fm.fp8_matmul(a, b, out_dtype),
-                                 (x, w), iters)
+            ms, copies, timer = cold_ms(
+                lambda a, b: fm.fp8_matmul(a, b, out_dtype), (x, w), iters)
             plain = time_ms(lambda: fm.fp8_matmul_plain(x, w, out_dtype), 5)
-            lib, lib_note = None, None
+            lib, lib_note, lib_timer = None, None, None
             if kind == "bf16":
-                lib = cold_ms(torch.matmul, (x, w), iters)[0]
+                lib, _, lib_timer = cold_ms(torch.matmul, (x, w), iters)
             elif kind == "e4m3":
-                lib, lib_note = scaled_mm_ms(x, w, out_dtype, iters)
+                lib, lib_note, lib_timer = scaled_mm_ms(x, w, out_dtype,
+                                                       iters)
             else:
                 lib_note = "torch._scaled_mm has no e5m2 x e5m2 form"
             bms, by = bound_ms(M * K * ebytes + K * N * ebytes
@@ -362,6 +417,7 @@ def gemm_phase():
             row = {"label": label, "M": M, "K": K, "N": N, "type": kind,
                    "out": str(out_dtype).split(".")[-1], "max_abs_err": err,
                    "ms": ms, "plain_ms": plain, "library_ms": lib,
+                   "timer": timer, "library_timer": lib_timer,
                    "library_note": lib_note, "bound_ms": bms,
                    "bound_by": by, "plan": plan, "operand_copies": copies}
             if M <= 16:
@@ -376,7 +432,7 @@ def gemm_phase():
 def scaled_mm_ms(x_q, w_q, out_dtype, iters):
     """``torch._scaled_mm`` on e4m3 operands with unit scales: M padded to
     a multiple of 16 and B made column-major outside the timed region.
-    Returns (ms, note)."""
+    Returns (ms, note, timer) as ``cold_ms`` gives them."""
     import torch
     M = x_q.shape[0]
     pad = -M % 16
@@ -387,12 +443,13 @@ def scaled_mm_ms(x_q, w_q, out_dtype, iters):
     note = f"torch._scaled_mm, M padded {M}->{M + pad}, B column-major"
     try:
         # (clones keep B column-major)
-        ms = cold_ms(lambda a, b: torch._scaled_mm(
+        ms, _, timer = cold_ms(lambda a, b: torch._scaled_mm(
             a, b, scale_a=one, scale_b=one, out_dtype=out_dtype),
-            (xp, wc), iters)[0]
+            (xp, wc), iters)
     except (RuntimeError, TypeError) as e:
-        return None, f"torch._scaled_mm raised: {str(e).splitlines()[0]}"
-    return ms, note
+        return (None, f"torch._scaled_mm raised: {str(e).splitlines()[0]}",
+                None)
+    return ms, note, timer
 
 
 # ---------------------------------------------------------------------------
@@ -467,14 +524,15 @@ def expert_gemm_phase():
                      f"version (rel {rel:.2e}), with itself ({same}), "
                      f"launched {launched} times or left an empty expert "
                      f"non-zero ({empty})")
-            ms, copies = cold_ms(
+            ms, copies, timer = cold_ms(
                 lambda a, b: fm.fp8_matmul_batched(a, b, out_dtype), (x, w),
                 50)
             plain = time_ms(
                 lambda: fm.fp8_matmul_batched_plain(x, w, out_dtype), 5)
-            lib, lib_note = None, "no batched library GEMM takes e4m3"
+            lib, lib_note, lib_timer = None, "no batched library GEMM " \
+                "takes e4m3", None
             if kind == "bf16":
-                lib = cold_ms(torch.bmm, (x, w), 50)[0]
+                lib, _, lib_timer = cold_ms(torch.bmm, (x, w), 50)
                 lib_note = "torch.bmm"
             bms, by = bound_ms(E * (M * K + K * N) * ebytes
                                + E * M * N * obytes, 2.0 * E * M * N * K,
@@ -482,6 +540,7 @@ def expert_gemm_phase():
             row = {"label": label, "E": E, "M": M, "K": K, "N": N,
                    "type": kind, "out": name, "max_abs_err": err,
                    "ms": ms, "plain_ms": plain, "library_ms": lib,
+                   "timer": timer, "library_timer": lib_timer,
                    "library_note": lib_note, "bound_ms": bms,
                    "bound_by": by, "plan": plan, "operand_copies": copies}
             rows.append(row)
@@ -563,8 +622,8 @@ def flash_phase():
             fail(f"flash attention S={S} disagrees with its plain version "
                  f"(max_abs_err {err:.3e} > {FLASH_TOL}) or with itself "
                  f"(bit-equal {same})")
-        ms, copies = cold_ms(kernel, (q, k, v), 100)
-        lib = cold_ms(sdpa, (q, k, v), 100)[0]
+        ms, copies, timer = cold_ms(kernel, (q, k, v), 100)
+        lib, _, lib_timer = cold_ms(sdpa, (q, k, v), 100)
         plain = time_ms(
             lambda: fa.flash_attention_plain(q, k, v, causal=True), 20)
         n_bytes = 2 * (2 * B * h * S * hd + 2 * B * kvh * S * hd)
@@ -574,6 +633,7 @@ def flash_phase():
                "hd": hd, "max_abs_err": err, "ms": ms,
                "event_ms": time_ms(lambda: kernel(q, k, v), 100),
                "plain_ms": plain, "library_ms": lib,
+               "timer": timer, "library_timer": lib_timer,
                "library_event_ms": time_ms(lambda: sdpa(q, k, v), 100),
                "library_note": "scaled_dot_product_attention(is_causal=True, "
                                "enable_gqa=True)",
@@ -688,13 +748,13 @@ def sparse24_phase():
                                               out_dtype).float()
                    ).abs().max().item()
             iters = 50
-            ms, copies = cold_ms(
+            ms, copies, timer = cold_ms(
                 lambda a, v, m: sm.sparse24_matmul(a, v, m, out_dtype),
                 (x, pw.values, pw.meta), iters)
             plain = time_ms(lambda: sm.sparse24_matmul_plain(
                 x, pw.values, pw.meta, out_dtype), 5)
             w_dense = sp.unpack_24(pw.values, pw.meta).to(torch.bfloat16)
-            lib = cold_ms(torch.matmul, (x, w_dense), iters)[0]
+            lib, _, lib_timer = cold_ms(torch.matmul, (x, w_dense), iters)
             slib, snote, serr = semi_structured_ms(w_dense, x, iters)
             vbytes = pw.values.element_size()
             n_bytes = M * K * 2 + (K // 2) * N * vbytes + (K // 8) * N \
@@ -704,6 +764,7 @@ def sparse24_phase():
             row = {"label": label, "M": M, "K": K, "N": N, "values": kind,
                    "out": "bfloat16", "max_abs_err": err, "ms": ms,
                    "plain_ms": plain, "library_ms": lib,
+                   "timer": timer, "library_timer": lib_timer,
                    "library_note": "torch.matmul on the unpacked bf16 weight",
                    "sparse_library_ms": slib, "sparse_library_note": snote,
                    "sparse_library_max_abs_err": serr,
@@ -806,7 +867,7 @@ def block24_phase():
                - sm.block24_matmul_plain(x, packed, kept, block,
                                          out_dtype).float()
                ).abs().max().item()
-        ms, copies = cold_ms(
+        ms, copies, timer = cold_ms(
             lambda a, b: sm.block24_matmul(a, b, kept, block, out_dtype),
             (x, packed), 50)
         plain = time_ms(lambda: sm.block24_matmul_plain(
@@ -814,12 +875,13 @@ def block24_phase():
         cols = torch.cat([torch.arange(i * block, (i + 1) * block,
                                        device="cuda") for i in kept])
         xk = x[:, cols].contiguous()
-        lib = cold_ms(torch.matmul, (xk, packed), 50)[0]
+        lib, _, lib_timer = cold_ms(torch.matmul, (xk, packed), 50)
         n_bytes = M * (K // 2) * 2 + (K // 2) * N * 2 + M * N * 2
         bms, by = bound_ms(n_bytes, 2.0 * M * N * (K // 2), "bf16")
         row = {"label": f"M{M}_block{block}", "M": M, "K": K, "N": N,
                "block": block, "out": "bfloat16", "max_abs_err": err,
                "ms": ms, "plain_ms": plain, "library_ms": lib,
+               "timer": timer, "library_timer": lib_timer,
                "library_note": "torch.matmul on x's kept columns gathered "
                                "beforehand (the gather is left out: no one "
                                "call computes E's function)",
@@ -1000,9 +1062,10 @@ def paged_phase():
             fail(f"paged decode {label} disagrees with its plain version "
                  f"(max_abs_err {err:.3e} > {tol}, or an empty row not 0) "
                  f"or with itself (bit-equal {same})")
-        ms, copies = cold_ms(pa.paged_flash_decode, (q, kp, vp, pm, ln), 100)
+        ms, copies, timer = cold_ms(pa.paged_flash_decode,
+                                    (q, kp, vp, pm, ln), 100)
         sdpa_args = sdpa_operands(q, kp, vp, pm, ln)
-        lib = cold_ms(sdpa_masked, sdpa_args, 100)[0]
+        lib, _, lib_timer = cold_ms(sdpa_masked, sdpa_args, 100)
         plain = time_ms(lambda: pa.paged_flash_decode_plain(
             q, kp, vp, pm, ln), 20)
         n_bytes, n_ops, n_rows = paged_work(q, kp, pm, ln)
@@ -1015,6 +1078,7 @@ def paged_phase():
                "event_ms": time_ms(
                    lambda: pa.paged_flash_decode(q, kp, vp, pm, ln), 200),
                "plain_ms": plain, "library_ms": lib,
+               "timer": timer, "library_timer": lib_timer,
                "library_event_ms": time_ms(lambda: sdpa_masked(*sdpa_args),
                                            200),
                "library_note": "scaled_dot_product_attention after a gather "
@@ -2847,6 +2911,618 @@ def hybrid_phase():
     return results
 
 
+# ---------------------------------------------------------------------------
+# [train]: llama3-8b at full width, 8 layers, through make_train_step
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_LAYERS = "llama3-8b", 8
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 3
+# hopper against the torch backend at step 0, from one init and one batch.
+# The two forwards differ in f32 summation order and so in the bf16
+# rounding of activations (one ulp, 2^-8 of an element); the loss is a mean
+# over 2048 tokens and each grad norm a norm over a whole leaf, which
+# average those: bf16 2e-3 of the loss and 2e-2 of each leaf's grad norm.
+# Under fp8 a one-ulp move can cross an e4m3 rounding boundary (2^-4 of an
+# element, LOGIT_TOL's reason): 1e-2 of the loss at each step. At a random
+# init the loss sits near ln V whatever the GEMMs compute, so it cannot
+# tell an fp8 forward from a bf16 one; the fp8 arm is held by its step-0
+# forward sublayer by sublayer instead (fp8_forward_check). fp8 grad
+# norms are printed, not held: the reference's dynamic fp8 GEMM is
+# differentiated through its unscaled e4m3 casts, so each leaf's gradient
+# is a sparse set of values on e4m3's subnormal grid (layer 0's w_gate
+# keeps a norm of 0.006 where bf16 gives 0.70), and what survives of a
+# leaf turns on the last bits of the activations (gaps up to 1.8x
+# measured between the backends on the H100).
+TRAIN_LOSS_TOL = {"bf16": 2e-3, "fp8": 1e-2}
+TRAIN_GRAD_TOL = {"bf16": 2e-2}
+# fp8:dense:hopper's step-0 forward against fp8:dense:torch's, sublayer by
+# sublayer on one input (fp8_forward_check), as the RMS of the gap over the
+# RMS of the torch output. Both quantize the same bf16 input to e4m3 and
+# the first GEMMs of a sublayer see the same e4m3 operands; they part where
+# a one-ulp bf16 difference in a first GEMM's output moves an element of
+# the next GEMM's input across an e4m3 rounding boundary (about 1 in 16 of
+# the elements that differ, each by one e4m3 step, 2^-4). A bf16 sublayer
+# differs from an fp8 one by every operand's e4m3 rounding (RMS ~2^-4/3^0.5
+# of each element), so a bf16 forward in the fp8 arm's place must fail the
+# gate: the check runs that control and fails if it passes. End to end the
+# logits cannot hold such a gate: over 8 layers the backends' flips
+# compound (the two fp8 runs' logits part by 6.9e-2, the control's by
+# 1.02e-1; PERF.md).
+TRAIN_FP8_TOL = 2e-2
+# kernel A at the training shapes (M = B·S = 2048): label, K, N, type, out
+TRAIN_GEMM_SHAPES = (
+    ("train_q_o", 4096, 4096, "bf16", "bfloat16"),
+    ("train_k_v", 4096, 1024, "bf16", "bfloat16"),
+    ("train_gate_up", 4096, 14336, "bf16", "bfloat16"),
+    ("train_down", 14336, 4096, "bf16", "bfloat16"),
+    ("train_head_chunk", 4096, 128256, "bf16", "float32"),
+    ("train_gate_up", 4096, 14336, "e4m3", "float32"),
+)
+
+
+def train_cfg():
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(TRAIN_ARCH),
+                               num_layers=TRAIN_LAYERS)
+
+
+def train_launches_expected(cfg, spec: str, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps, from the code: the stack's
+    super-layers and each CE chunk are checkpointed (``remat="full"``), so
+    every linear's kernel runs once forward and once more in backward;
+    backward itself runs the torch reference. 7 linears per layer; the LM
+    head once per CE chunk, on kernel A in bf16 whatever the policy."""
+    from repro_torch.runtime import train_loop as tl
+    linears = 2 * 7 * cfg.num_layers * steps
+    head = 2 * (TRAIN_S // min(tl.CE_CHUNK, TRAIN_S)) * steps
+    want = {"gemm": 0, "flash_attention": 0, "paged_attention": 0,
+            "sparse24_gemm": 0, "block24_gemm": 0}
+    precision, sparsity, backend = spec.split(":")
+    if backend == "hopper":
+        want["gemm"] = linears + head
+    elif backend == "hopper_sparse24":
+        want["sparse24_gemm"] = linears
+        want["gemm"] = head
+    return want
+
+
+def state_bytes(state) -> dict:
+    return {"params": tree_bytes(state.params),
+            "master": tree_bytes(state.opt.master),
+            "mu": tree_bytes(state.opt.mu), "nu": tree_bytes(state.opt.nu)}
+
+
+def leaf_grad_norms(cfg, rt, policy, params, batch):
+    """Step-0 loss and the f32 norm of each leaf's gradient, in leaf
+    order (the grads freed before returning)."""
+    import torch
+    from repro_torch.core import execution as ex
+    from repro_torch.core import tree
+    from repro_torch.runtime import train_loop as tl
+    pcfg, prt = ex.apply_policy(cfg, rt, policy)
+    (loss, _), grads = tl.value_and_grad(tl.make_loss_fn(pcfg, prt))(
+        params, batch)
+    norms = [float(torch.linalg.vector_norm(g.float()))
+             for g in tree.leaves(grads)]
+    return float(loss), norms, grads
+
+
+def train_arm(tag, cfg, init, batches, steps, opt_cfg, rt, profile=False):
+    """``steps`` train steps under the policy ``tag`` from a copy of
+    ``init``: the step-0 loss and per-leaf grad norms (a separate forward
+    and backward before the steps), then the steps with every launch
+    counter zeroed just before and read just after, each step timed by
+    the host clock around work that ends in a device synchronise."""
+    import torch
+    from repro_torch.core import execution as ex
+    from repro_torch.core import tree
+    from repro_torch.runtime import train_loop as tl
+    policy = ex.parse_policy(tag)
+    params = tree.map_tree(torch.clone, init)
+    loss0, norms, grads = leaf_grad_norms(cfg, rt, policy, params,
+                                          batches[0])
+    if tag == "bf16:dense:hopper_sparse24":
+        # the repaired fault: the weight gets the masked gradient of the
+        # 2:4-pruned weight (half of each group of four), not none
+        g = grads["layers"][0]["mlp"]["w_gate"]
+        nonzero = int((g != 0).sum())
+        print(f"[train] {tag}: layer 0 w_gate gradient nonzero "
+              f"{nonzero} of {g.numel()} (half: {g.numel() // 2})",
+              flush=True)
+        if nonzero != g.numel() // 2:
+            fail(f"{tag}: w_gate's gradient is not the 2:4-masked one "
+                 f"({nonzero} nonzero of {g.numel()})")
+    del grads
+    state = tl.init_state(params, opt_cfg)
+    del params
+    sb = state_bytes(state)
+    print(f"[train] {tag}: state {json.dumps(sb)} = "
+          f"{sum(sb.values()) / 2**30:.2f} GiB before the first step "
+          f"(grads {sb['params'] / 2**30:.2f} GiB more in a step)",
+          flush=True)
+    step = tl.make_train_step(cfg, opt_cfg, rt, policy=policy)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        loss = float(metrics["loss"])            # waits for the step
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = launch_counts()
+    from repro_torch.kernels import fp8_matmul as fm
+    types = dict(fm.TYPE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = train_launches_expected(cfg, tag, steps)
+    out = {"policy": tag, "losses": losses, "loss0": loss0,
+           "grad_norms": norms, "step_ms": [1e3 * t for t in times],
+           "launches": launches, "launches_expected": want,
+           "gemm_by_type": types, "peak_bytes": peak,
+           "state_bytes": sum(sb.values())}
+    # the median of the steps after the first (which takes the first
+    # calls' set-up); a one-step arm has only the first
+    later = sorted(out["step_ms"][1:] or out["step_ms"])
+    half = len(later) // 2
+    out["ms_per_step"] = later[half] if len(later) % 2 \
+        else (later[half - 1] + later[half]) / 2
+    out["tok_s"] = TRAIN_B * TRAIN_S / (out["ms_per_step"] / 1e3)
+    if profile:
+        def one():
+            nonlocal state
+            state, m = step(state, batches[0])
+            float(m["loss"])
+        one()                                     # warm, unprofiled
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        gemms = ("gemm", "sparse24_gemm", "block24_gemm")
+        ran = 0
+
+        def profiled_step():
+            nonlocal ran
+            before = launch_counts()
+            one()
+            torch.cuda.synchronize()
+            after = launch_counts()
+            ran = sum(after[k] - before[k] for k in gemms)
+
+        # complete: a record for every launch of kernels A, D and E
+        got = traced(profiled_step, lambda ks: len(
+            [e for e in ks if is_port_gemm(e.name)]) == ran, "a train step")
+        if got is None:
+            out["profile"] = {
+                "step_ms_unprofiled": wall_ms,
+                "device_busy_ms": "not measured: torch.profiler lost "
+                                  "kernel records in every attempt"}
+        else:
+            prof, kernels = got
+            spans = device_spans(prof)
+            by_name = {}
+            for e in kernels:
+                by_name[e.name] = by_name.get(e.name, 0.0) + \
+                    e.time_range.end - e.time_range.start
+            busy = busy_us(spans) / 1e3
+            total = sum(by_name.values()) / 1e3
+            gemm = sum(t for n, t in by_name.items()
+                       if is_port_gemm(n)) / 1e3
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            out["profile"] = {
+                "step_ms_unprofiled": wall_ms, "device_busy_ms": busy,
+                "device_idle_share": 1.0 - busy / wall_ms,
+                "kernels": len(spans), "kernel_a_ms": gemm,
+                "kernel_a_share_of_device_time":
+                    gemm / total if total else None,
+                "top_kernels_ms": {short_name(n): t / 1e3 for n, t in top}}
+    print(f"[train] {json.dumps(out)}", flush=True)
+    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
+        fail(f"{tag}: non-finite loss {losses}")
+    if launches != want:
+        fail(f"{tag}: launches {launches}, the code implies {want}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp8_forward_check(cfg, rt, init, batch) -> dict:
+    """The fp8 arm's step-0 forward (no grad) on ``batch``, teacher forced
+    sublayer by sublayer: each layer's attention and MLP run under
+    ``fp8:dense:hopper``, ``fp8:dense:torch`` and the control
+    ``bf16:dense:torch`` on one input, the hopper output feeding on. Every
+    hopper output is within TRAIN_FP8_TOL of the fp8 torch one and every
+    control output beyond it. The end-to-end logits of the three policies
+    are printed beside, not held: there the backends' rounding differences
+    compound over the layers."""
+    import torch
+    from repro_torch.core import execution as ex
+    from repro_torch.models import forward
+    from repro_torch.models.attention import attention_block
+    from repro_torch.models.layers import embed_tokens, rms_norm, swiglu_mlp
+    tags = ("fp8:dense:torch", "fp8:dense:hopper", "bf16:dense:torch")
+    sides = {t: ex.apply_policy(cfg, rt, ex.parse_policy(t)) for t in tags}
+
+    def gaps(outs):
+        ref = outs[tags[0]].float()
+        return {t: float((outs[t].float() - ref).norm() / ref.norm())
+                for t in tags[1:]}
+    hop, ctrl = [], []
+    with torch.no_grad():
+        x = embed_tokens(batch["inputs"], init["embed"]).to(rt.act_dtype)
+        for p in init["layers"]:
+            for norm, fn in (
+                    ("norm1", lambda h, c, r: attention_block(h, p["attn"],
+                                                              c, r)),
+                    ("norm2", lambda h, c, r: swiglu_mlp(h, p["mlp"], c, r))):
+                h = rms_norm(x, p[norm], cfg.norm_eps)
+                outs = {t: fn(h, *sides[t]) for t in tags}
+                g = gaps(outs)
+                hop.append(g[tags[1]])
+                ctrl.append(g[tags[2]])
+                x = x + outs[tags[1]]
+        del outs
+        e2e = gaps({t: forward(init, batch["inputs"], *sides[t])[0][
+            ..., :cfg.vocab_size] for t in tags})
+    torch.cuda.empty_cache()
+    tol = TRAIN_FP8_TOL
+    ok = max(hop) <= tol < min(ctrl)
+    out = {"sublayers": len(hop), "hopper_worst": max(hop),
+           "control_least": min(ctrl), "logits_end_to_end": e2e}
+    print(f"[train] fp8 step-0 forward against fp8:dense:torch, teacher "
+          f"forced over {len(hop)} sublayers (rel RMS gap): fp8:dense:hopper"
+          f" worst {max(hop):.3e}, control bf16:dense:torch least "
+          f"{min(ctrl):.3e} (tol {tol}: hopper within, control beyond) "
+          f"{'ok' if ok else 'MISMATCH'}; end-to-end logits (not held): "
+          f"hopper {e2e[tags[1]]:.3e}, control {e2e[tags[2]]:.3e}",
+          flush=True)
+    if not ok:
+        fail("fp8:dense:hopper's forward: a sublayer beyond the tolerance "
+             "of the torch backend's, or the gate cannot tell bf16 from fp8")
+    return out
+
+
+def check_pair(tag, hop, ref, precision):
+    """``hop`` (the hopper arm) against ``ref`` (the torch backend's),
+    from one init and the same batches: the loss of step 0 and of each
+    step after it, and (bf16) each leaf's step-0 grad norm."""
+    rel = max(abs(a / b - 1) for a, b in zip(
+        [hop["loss0"]] + hop["losses"], [ref["loss0"]] + ref["losses"]))
+    # each leaf's gap relative to its norm, floored at 1e-3 of the largest
+    # leaf norm: under fp8 the reference's unscaled e4m3 cast of the
+    # cotangent flushes most of the q/k projections' gradient to zero, and
+    # what survives of such a leaf has no stable relative size
+    floor = 1e-3 * max(ref["grad_norms"])
+    gaps = [abs(a - b) / max(b, floor)
+            for a, b in zip(hop["grad_norms"], ref["grad_norms"])]
+    worst = max(gaps)
+    grad_tol = TRAIN_GRAD_TOL.get(precision)
+    ok = rel <= TRAIN_LOSS_TOL[precision] and (
+        grad_tol is None or worst <= grad_tol)
+    print(f"[train] {tag} vs torch backend: step-0 loss {hop['loss0']:.6f}"
+          f" / {ref['loss0']:.6f}, losses {hop['losses']} / {ref['losses']}"
+          f" (largest rel {rel:.2e}, tol {TRAIN_LOSS_TOL[precision]:g}); "
+          f"largest per-leaf step-0 grad-norm gap {worst:.2e} over "
+          f"{len(gaps)} leaves (tol "
+          f"{grad_tol if grad_tol is not None else 'none: printed only'}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"{tag}: against the torch backend: loss rel {rel:.2e}, "
+             f"grad-norm gap {worst:.2e}")
+    return {"loss0_rel": rel, "grad_norm_gap": worst}
+
+
+def train_gemm_rows():
+    """Kernel A at the training shapes, and kernel D at the gate/up shape
+    of the prune+pack arm: checked against the plain versions, timed with
+    their bounds and the library call."""
+    import torch
+    from repro_torch.core import sparsity as sp
+    from repro_torch.kernels import fp8_matmul as fm
+    from repro_torch.kernels import sparse24_matmul as sm
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    M = TRAIN_B * TRAIN_S
+    rows = []
+    for label, K, N, kind, out in TRAIN_GEMM_SHAPES:
+        out_dtype = getattr(torch, out)
+        x, w = gemm_inputs(M, K, N, kind, gen)
+        got = fm.fp8_matmul(x, w, out_dtype)
+        again = fm.fp8_matmul(x, w, out_dtype)
+        want = fm.fp8_matmul_plain(x, w, out_dtype)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / max(want.float().abs().max().item(), 1e-30)
+        same = bit_equal(got, again)
+        if not (rel <= GEMM_REL_TOL[out] and same
+                and bool(torch.isfinite(got).all())):
+            fail(f"GEMM {label} {kind}->{out} at M={M}: rel {rel:.2e}, "
+                 f"repeat bit-equal {same}")
+        del got, again, want
+        ms, copies, timer = cold_ms(
+            lambda a, b: fm.fp8_matmul(a, b, out_dtype), (x, w), 10)
+        plain = time_ms(lambda: fm.fp8_matmul_plain(x, w, out_dtype), 2)
+        if kind == "bf16":
+            lib, _, lib_timer = cold_ms(torch.matmul, (x, w), 10)
+            note = "torch.matmul"
+        else:
+            lib, note, lib_timer = scaled_mm_ms(x, w, out_dtype, 10)
+        eb, ob = (2 if kind == "bf16" else 1), (4 if out == "float32" else 2)
+        bms, by = bound_ms(M * K * eb + K * N * eb + M * N * ob,
+                           2.0 * M * N * K, kind)
+        row = {"label": label, "M": M, "K": K, "N": N, "type": kind,
+               "out": out, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "library_ms": lib, "library_note": note, "bound_ms": bms,
+               "timer": timer, "library_timer": lib_timer,
+               "bound_by": by, "plan": plan_note(M, N, K, "gemm"),
+               "operand_copies": copies}
+        rows.append(row)
+        print(f"[train-gemm] {json.dumps(row)}", flush=True)
+        del x, w
+    # kernel D: the prune+pack arm's gate/up, values packed from the
+    # pruned weight as hopper_sparse24.dense packs them per call
+    K, N = 4096, 14336
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device="cuda")
+         * K ** -0.5).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    values, meta = sp.pack_24(sp.prune_24(w))
+    torch.cuda.synchronize()
+    pack_ms = 1e3 * (time.perf_counter() - t0)
+    got = sm.sparse24_matmul(x, values, meta, torch.bfloat16)
+    want = sm.sparse24_matmul_plain(x, values, meta, torch.bfloat16)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / max(want.float().abs().max().item(), 1e-30)
+    if rel > GEMM_REL_TOL["bfloat16"]:
+        fail(f"packed GEMM train_gate_up at M={M}: rel {rel:.2e}")
+    ms, copies, timer = cold_ms(
+        lambda a, v, m: sm.sparse24_matmul(a, v, m, torch.bfloat16),
+        (x, values, meta), 10)
+    plain = time_ms(lambda: sm.sparse24_matmul_plain(x, values, meta,
+                                                     torch.bfloat16), 2)
+    w_dense = sp.unpack_24(values, meta)
+    lib, _, lib_timer = cold_ms(torch.matmul, (x, w_dense), 10)
+    bms, by = bound_ms(M * K * 2 + (K // 2) * N * 2 + (K // 8) * N
+                       + M * N * 2, 2.0 * M * N * (K // 2), "bf16")
+    row = {"label": "train_gate_up", "M": M, "K": K, "N": N,
+           "values": "bf16", "out": "bfloat16", "max_abs_err": err,
+           "ms": ms, "plain_ms": plain, "library_ms": lib,
+           "timer": timer, "library_timer": lib_timer,
+           "library_note": "torch.matmul on the unpacked bf16 weight",
+           "bound_ms": bms, "bound_by": by,
+           "plan": plan_note(M, N, K, "sparse24"), "operand_copies": copies,
+           "prune_pack_ms_first_call": pack_ms}
+    print(f"[train-sparse24] {json.dumps(row)}", flush=True)
+    return rows, row
+
+
+def train_grad_guard():
+    """On the card, autograd through a kernel entry point raises (as
+    ``jax.grad`` through a ``pallas_call`` does), and so does a train step
+    whose attention runs on kernel B (``rt.use_pallas``)."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import sparsity as sp
+    from repro_torch.kernels import fp8_matmul as fm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sparse24_matmul as sm
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import RuntimeCfg
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop as tl
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    x, w = t(16, 256), t(256, 128)
+    vals, meta = sp.pack_24(sp.prune_24(w))
+    q = t(1, 128, 4, 64)
+    calls = {
+        "A fp8_matmul": lambda g: fm.fp8_matmul(x.requires_grad_(g), w),
+        "A fp8_matmul_batched": lambda g: fm.fp8_matmul_batched(
+            x[None].detach().requires_grad_(g), w[None]),
+        "B flash_attention": lambda g: ops.flash_attention(
+            q.requires_grad_(g), q[:, :, :2].detach(), q[:, :, :2].detach()),
+        "C paged_flash_decode": lambda g: pa.paged_flash_decode(
+            t(2, 4, 64).requires_grad_(g), t(3, 16, 2, 64), t(3, 16, 2, 64),
+            torch.tensor([[0], [1]], dtype=torch.int32, device="cuda"),
+            torch.tensor([5, 16], dtype=torch.int32, device="cuda")),
+        "D sparse24_matmul": lambda g: sm.sparse24_matmul(
+            x.detach().requires_grad_(g), vals, meta),
+        "E block24_matmul": lambda g: ops.block24_matmul(
+            x.detach().requires_grad_(g), w[:128].contiguous(), (0,),
+            block=128)}
+    for name, call in calls.items():
+        try:
+            call(True)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            fail(f"{name}: autograd through the kernel entry point was "
+                 "not refused on the card")
+        with torch.no_grad():
+            if call(True).grad_fn is not None:
+                fail(f"{name}: forward under no_grad built a graph")
+    cfg = get_reduced(TRAIN_ARCH)
+    opt = adamw.AdamWConfig(total_steps=10, warmup_steps=2)
+    state = tl.init_state(init_params(cfg, gen, device="cuda"), opt)
+    step = tl.make_train_step(cfg, opt, RuntimeCfg(use_pallas=True))
+    batch = {"inputs": torch.randint(0, cfg.vocab_size, (2, 64),
+                                     device="cuda", generator=gen),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 64),
+                                     device="cuda", generator=gen)}
+    try:
+        step(state, batch)
+    except RuntimeError as e:
+        if "flash_attention has no backward" not in str(e):
+            raise
+    else:
+        fail("a train step with rt.use_pallas=True was not refused")
+    print(f"[train] grad guard on the card: {len(calls)} kernel entry "
+          "points refuse autograd (A, A batched, B, C, D, E) and run under "
+          "no_grad; a train step with rt.use_pallas=True raises", flush=True)
+
+
+def train_cli():
+    """``launch/train.py --reduced --device cuda --backend hopper``: six
+    steps straight against three, a checkpoint and three resumed, and
+    against a supervised run that saves every two steps, fails at step 3
+    and resumes from its periodic checkpoint; the states bit-equal under
+    deterministic algorithms."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.train import main as train_main
+    base = ROOT / "build" / "train_cli"
+    shutil.rmtree(base, ignore_errors=True)
+    common = ["--arch", TRAIN_ARCH, "--reduced", "--device", "cuda",
+              "--backend", "hopper", "--batch", "4", "--seq", "128",
+              "--log-every", "100", "--checkpoint-every", "100"]
+    torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    try:
+        for argv in (["--steps", "6", "--checkpoint-dir", str(base / "a")],
+                     ["--steps", "3", "--checkpoint-dir", str(base / "b")],
+                     ["--steps", "6", "--checkpoint-dir", str(base / "b"),
+                      "--resume"]):
+            if train_main(common + argv) != 0:
+                fail(f"train CLI {argv} did not finish")
+        rc = train_main(common + ["--steps", "6", "--checkpoint-dir",
+                                  str(base / "c"), "--checkpoint-every", "2",
+                                  "--fail-at-step", "3", "--supervise",
+                                  "--max-restarts", "1"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    def leaves(d):
+        path = d / f"step_{CheckpointManager(str(d)).latest_step()}"
+        n = len(list(path.glob("arr_*.npy")))
+        return [np.load(path / f"arr_{i}.npy") for i in range(n)]
+
+    def same(x, y):
+        return len(x) == len(y) and all(np.array_equal(p, q)
+                                        for p, q in zip(x, y))
+    a, b, c = leaves(base / "a"), leaves(base / "b"), leaves(base / "c")
+    last = CheckpointManager(str(base / "c")).latest_step()
+    print(f"[train] CLI: 6 steps straight vs 3 + checkpoint + resume 3: "
+          f"{len(a)} state leaves bit-equal={same(a, b)}; vs supervised "
+          f"restart after --fail-at-step 3 from the periodic checkpoint: rc "
+          f"{rc}, last checkpoint step {last}, bit-equal={same(a, c)} "
+          f"(deterministic algorithms); CLI arm "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if not same(a, b):
+        fail("train CLI resume is not bitwise")
+    if rc != 0 or last != 6 or not same(a, c):
+        fail("the supervised restart did not finish the run bit-equal")
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def fp8_linear_check():
+    """One delayed-scaling ``fp8_linear`` forward and backward at the
+    gate/up shape (M = 2048) with its forward on kernel A, against the
+    torch backend's plain version: the forward within GEMM_REL_TOL, the
+    backward (the same E5M2 torch code on the same fp8 operands)
+    bit-equal."""
+    import torch
+    from repro_torch.core import fp8 as fp8lib
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    M, K, N = TRAIN_B * TRAIN_S, 4096, 14336
+    x0 = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w0 = (torch.randn((K, N), generator=gen, device="cuda")
+          * K ** -0.5).to(torch.bfloat16)
+    g = torch.randn((M, N), generator=gen, device="cuda").to(torch.bfloat16)
+    state = fp8lib.init_fp8_state(["gate"], device="cuda")
+    collect = {}
+    fp8lib.fp8_linear(x0, w0, state, "gate", collect=collect)
+    state = fp8lib.fold_amaxes(state, collect)     # scales from step 0
+    outs = {}
+    for backend in ("hopper", "torch"):
+        zero_launch_counts()
+        x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+        y = fp8lib.fp8_linear(x, w, state, "gate", backend=backend)
+        dx, dw = torch.autograd.grad(y, (x, w), g)
+        outs[backend] = (y.detach(), dx, dw, launch_counts()["gemm"])
+    (y, dx, dw, n), (ry, rdx, rdw, rn) = outs["hopper"], outs["torch"]
+    err = (y.float() - ry.float()).abs().max().item()
+    rel = err / ry.float().abs().max().item()
+    same = bit_equal(dx, rdx) and bit_equal(dw, rdw)
+    ok = rel <= GEMM_REL_TOL["bfloat16"] and same and n == 1 and rn == 0 \
+        and dx.dtype == dw.dtype == torch.bfloat16
+    print(f"[train] fp8_linear M={M} K={K} N={N} (delayed scales "
+          f"x {float(state['gate/x'].scale):.4g}, w "
+          f"{float(state['gate/w'].scale):.4g}): forward on kernel A "
+          f"({n} launch) rel {rel:.2e} to the torch backend; dx, dw bf16 "
+          f"bit-equal={same} {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("fp8_linear disagrees with its plain version")
+
+
+def train_phase():
+    """llama3-8b at full width, 8 layers, B=4, S=512, bf16 weights from a
+    seeded generator on the card, SyntheticLM batches: dense, fp8 and 2:4
+    arms, the delayed-scaling linear, the CLI and the grad guard."""
+    import torch
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import RuntimeCfg
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    cfg = train_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    init = init_params(cfg, gen, device="cuda")
+    n_params = sum(t.numel() for t in tree.leaves(init))
+    print(f"[train] {cfg.name}: {cfg.num_layers} layers (depth cut from "
+          f"32), d_model {cfg.d_model}, d_ff {cfg.d_ff}, heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.2f} B params; B={TRAIN_B} S={TRAIN_S}, "
+          f"remat {cfg.remat}", flush=True)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to("cuda")
+                for k, v in data.batch_at(i).items()}
+               for i in range(TRAIN_STEPS)]
+    rt = RuntimeCfg()
+    opt_cfg = adamw.AdamWConfig(total_steps=1000, warmup_steps=20)
+    rows, drow = train_gemm_rows()
+    arms = {}
+    for tag, steps, profile in (
+            ("bf16:dense:hopper", TRAIN_STEPS, True),
+            ("bf16:dense:torch", TRAIN_STEPS, False),
+            ("fp8:dense:hopper", TRAIN_STEPS, False),
+            ("fp8:dense:torch", TRAIN_STEPS, False),
+            ("bf16:sparse24:hopper", 1, False),
+            ("bf16:dense:hopper_sparse24", 1, False)):
+        arms[tag] = train_arm(tag, cfg, init, batches, steps, opt_cfg, rt,
+                              profile)
+    gaps = {"bf16": check_pair("bf16:dense:hopper",
+                               arms["bf16:dense:hopper"],
+                               arms["bf16:dense:torch"], "bf16"),
+            "fp8": check_pair("fp8:dense:hopper", arms["fp8:dense:hopper"],
+                              arms["fp8:dense:torch"], "fp8")}
+    fp8_types = arms["fp8:dense:hopper"]["gemm_by_type"]
+    if fp8_types["e4m3"] != 2 * 7 * cfg.num_layers * TRAIN_STEPS:
+        fail(f"fp8:dense:hopper: e4m3 launches {fp8_types}")
+    gaps["fp8"]["forward"] = fp8_forward_check(cfg, rt, init, batches[0])
+    del init
+    torch.cuda.empty_cache()
+    fp8_linear_check()
+    train_cli()
+    train_grad_guard()
+    summary = {tag: {k: a[k] for k in ("ms_per_step", "tok_s", "peak_bytes",
+                                       "state_bytes", "launches")}
+               for tag, a in arms.items()}
+    summary["bf16:dense:hopper"]["profile"] = \
+        arms["bf16:dense:hopper"]["profile"]
+    print(f"[train-summary] {json.dumps({'arms': summary, 'step0': gaps})}",
+          flush=True)
+    print(f"[train] phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    results = {f"train {tag}": {"launches": a["launches"]}
+               for tag, a in arms.items()}
+    return results, rows, drow
+
+
 def is_port_gemm(kernel_name: str) -> bool:
     """Kernels A, D and E by their CUDA names (this tree's shared tile
     kernel, or the per-kernel names of earlier trees)."""
@@ -2986,10 +3662,18 @@ def check_serve(tag, run, base, launches, cfg, policy=None):
 # ---------------------------------------------------------------------------
 
 def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
-                paged_rows, sweep_launches, serve, expert_rows):
+                paged_rows, sweep_launches, serve, expert_rows, train_rows,
+                train_drow):
     def pick(rows, **match):
         return next(r for r in rows
                     if all(r[k] == v for k, v in match.items()))
+
+    def measured(row):
+        # the numbers a kernel's entry takes from its timed row, with the
+        # timer of ms and of library_ms ("profiler" or "cuda events")
+        return {k: row[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "timer", "library_timer")}
 
     g = pick(gemm_rows, label="decode_mlp", type="bf16")
     f = pick(flash_rows, S=128, hd=128)
@@ -3014,10 +3698,7 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
                     "replaces": replaces,
                     "launches": sum(by_policy.values()),
                     "launches_by_policy": by_policy,
-                    "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                    "plain_ms": row["plain_ms"],
-                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                    "library_ms": row["library_ms"], "shape": shape})
+                    **measured(row), "shape": shape})
     # kernel A's expert-batched entry ([moe]) and kernel B at gemma3's
     # head_dim 256 ([local]): the same sources, their own rows
     x = pick(expert_rows, label="moe_decode_gate_up", type="bf16")
@@ -3040,10 +3721,7 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
                     "replaces": replaces,
                     "launches": sum(by_policy.values()),
                     "launches_by_policy": by_policy,
-                    "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                    "plain_ms": row["plain_ms"],
-                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                    "library_ms": row["library_ms"], "shape": shape})
+                    **measured(row), "shape": shape})
     # the recurrent stacks' new shapes ([ssm], [hybrid]): kernel A at N =
     # 64 and at rwkv6-3b's channel-mix width, kernel D at N = 64, kernel B
     # at head_dim 64 with group 1
@@ -3075,10 +3753,28 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
                     "replaces": replaces,
                     "launches": sum(by_policy.values()),
                     "launches_by_policy": by_policy,
-                    "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                    "plain_ms": row["plain_ms"],
-                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                    "library_ms": row["library_ms"], "shape": shape})
+                    **measured(row), "shape": shape})
+    # the training path ([train]): kernel A at the gate/up shape with M =
+    # B·S = 2048 and kernel D at the prune+pack arm's gate/up; launches
+    # from the train arms' main-path runs
+    ta = pick(train_rows, label="train_gate_up", type="bf16")
+    for name, row, source, kernel, shape in (
+            ("gemm_train", ta, "src/repro_torch/kernels/csrc/gemm.cu",
+             "gemm", f"M={ta['M']} K={ta['K']} N={ta['N']} bf16->bf16"),
+            ("sparse24_gemm_train", train_drow,
+             "src/repro_torch/kernels/csrc/sparse24_gemm.cu",
+             "sparse24_gemm",
+             f"M={train_drow['M']} K={train_drow['K']} N={train_drow['N']}"
+             " packed bf16->bf16 (pruned and packed per call)")):
+        by_policy = {p: r["launches"][kernel] for p, r in serve.items()
+                     if p.startswith("train ")}
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": "src/repro/kernels/fp8_matmul.py:56"
+                    if kernel == "gemm"
+                    else "src/repro/kernels/sparse24_matmul.py:68",
+                    "launches": sum(by_policy.values()),
+                    "launches_by_policy": by_policy,
+                    **measured(row), "shape": shape})
     # kernel E is on no serving path (its counter read 0 in every policy's
     # run, which check_serve requires): its launches are those of its one
     # entry point, ops.block24_matmul, driven in block24_phase
@@ -3089,9 +3785,7 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
                 "launches_by_policy": {p: r["launches"]["block24_gemm"]
                                        for p, r in serve.items()},
                 "path": "repro_torch.kernels.ops.block24_matmul",
-                "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+                **measured(e),
                 "shape": f"M={e['M']} K={e['K']} N={e['N']} "
                          f"block={e['block']} bf16->bf16"})
     # kernel C is on no serving path either (the paged decode step gathers
@@ -3109,10 +3803,7 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
                                        for p, r in serve.items()},
                 "path": "repro_torch.kernels.paged_attention."
                         "paged_decode_attention and sweep_paged_tilings",
-                "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                "plain_ms": c["plain_ms"],
-                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                "library_ms": c["library_ms"],
+                **measured(c),
                 "shape": f"B={c['B']} h={c['h']} kvh={c['kvh']} "
                          f"hd={c['hd']} ps={c['page_size']} "
                          f"mp={c['max_pages']} lengths {c['lengths']} "
@@ -3148,7 +3839,8 @@ def kernels_only(smi: str) -> int:
                "sparse24": sparse24_phase(), "block24": block24_phase(),
                "paged": paged_phase()}
     keep = ("label", "E", "M", "K", "N", "S", "hd", "type", "values",
-            "block", "ms", "event_ms", "library_ms", "bound_ms", "plan",
+            "block", "ms", "timer", "event_ms", "library_ms",
+            "library_timer", "bound_ms", "plan",
             "host_us_per_call")
     for name in ("gemm", "experts", "flash", "sparse24", "block24", "paged"):
         summary[name] = [{k: r[k] for k in keep if k in r}
@@ -3163,6 +3855,9 @@ ARGS = None
 def main() -> int:
     global ARGS
     ARGS = parse_args(sys.argv[1:])
+    # cuBLAS reproducible under deterministic algorithms (the [train] CLI
+    # arm's bitwise resume): set before any cuBLAS handle exists
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     smi = preflight(ARGS.src.resolve())
     if ARGS.kernels_only:
@@ -3184,9 +3879,12 @@ def main() -> int:
     serve.update(local_phase())
     serve.update(ssm_phase())
     serve.update(hybrid_phase())
+    train, train_rows, train_drow = train_phase()
+    serve.update(train)
     print(json.dumps(kernel_line(gemm_rows, flash_rows, sparse24_rows,
                                  block24_rows, paged_rows, sweep_launches,
-                                 serve, expert_rows)), flush=True)
+                                 serve, expert_rows, train_rows,
+                                 train_drow)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,11 @@ reference's ``pack_model_params`` returns, whose packed leaves are
 ``PackedWeight`` named tuples of stacked values (n_super, K/2, N) and meta
 (n_super, K/8, N) uint8: each becomes one port ``PackedWeight`` per layer.
 :func:`caches_from_numpy` does the same for a serving cache, dense or
-paged.
+paged, and :func:`train_state_from_numpy` for the reference's train state
+(params, AdamW moments and masters, the int8 error carry).
+:func:`params_to_numpy` goes back: a port tree of the params' structure
+(params, moments, masters, grads) in the reference's layout, layers
+stacked again, so the tests can hold the two after N train steps.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ _BIT_TYPES = {
 
 def to_torch(a, device=None) -> torch.Tensor:
     """One numpy array → a torch tensor with the same bits."""
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.array(a, order="C")        # a copy; 0-d stays 0-d
     name = str(a.dtype)
     if name in _BIT_TYPES:
         carrier, ttype = _BIT_TYPES[name]
@@ -119,3 +123,62 @@ def caches_from_numpy(tree: Dict[str, Any], cfg,
     stacks its tail layers; the port's layer ``s * len(pattern) + i``
     gets every leaf of super-layer ``s`` of block ``i``, bit for bit."""
     return _unstack(tree, cfg, device)
+
+
+def _stack(trees: List[Any]) -> Any:
+    """Leafwise ``np.stack`` of same-structured trees of numpy arrays."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def params_to_numpy(params: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """A port tree of the params' structure → the reference's layout with
+    numpy leaves: ``layers`` stacked back into ``{"b{i}": (n_super, ...)}``,
+    a hybrid stack's tail into ``tail``, ``shared_attn`` as it is. bf16
+    and fp8 leaves come back as f32 (exact: every such value is an f32),
+    the others in their own type."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype in (torch.bfloat16, torch.float8_e4m3fn,
+                       torch.float8_e5m2):
+            t = t.float()
+        return t.numpy()
+
+    def conv(sub):
+        if isinstance(sub, dict):
+            return {k: conv(v) for k, v in sub.items()}
+        return leaf(sub)
+
+    n_pat = len(cfg.superlayer_pattern)
+    n_stack = cfg.num_superlayers * n_pat
+    layers = [conv(p) for p in params["layers"]]
+    out = {key: conv(params[key]) for key in ("embed", "head", "final_norm")}
+    out["layers"] = {f"b{i}": _stack(layers[i:n_stack:n_pat])
+                     for i in range(n_pat)}
+    if cfg.hybrid_tail_layers:
+        out["tail"] = _stack(layers[n_stack:])
+    if "shared_attn" in params:
+        out["shared_attn"] = conv(params["shared_attn"])
+    return out
+
+
+def train_state_from_numpy(state, cfg, device=None):
+    """The reference's ``TrainState`` with numpy leaves (``jax.tree.map(
+    np.asarray, state)``) → the port's: params, the AdamW state's moments
+    and masters (each of the params' structure) and the int8 error carry
+    through :func:`params_from_numpy`, bit for bit; the step as a 0-d
+    int32 tensor."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainState
+
+    def tree(t):
+        return None if t is None else params_from_numpy(t, cfg, device)
+
+    opt = state.opt
+    return TrainState(
+        params=tree(state.params),
+        opt=adamw.AdamWState(
+            step=to_torch(np.asarray(opt.step, np.int32), device),
+            mu=tree(opt.mu), nu=tree(opt.nu), master=tree(opt.master)),
+        grad_error=tree(state.grad_error))

@@ -1,2 +1,2 @@
 # Submodules are imported by callers (`from repro_torch.core import fp8`).
-__all__ = ["characterization", "execution", "fp8", "paging", "sparsity"]
+__all__ = ["characterization", "execution", "fp8", "paging", "sparsity", "tree"]

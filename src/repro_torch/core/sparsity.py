@@ -67,12 +67,19 @@ def check_24(w: torch.Tensor) -> torch.Tensor:
 # Packing: values (K/2, N) + 2-bit indices packed 4/byte (K/8, N)
 # ---------------------------------------------------------------------------
 
-def _gather_bits(g: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """``torch.gather`` along dim 1 on the raw bits (the CPU has no fp8
-    gather); the values move unchanged, signed zeros included."""
-    carrier = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
-               8: torch.int64}[g.element_size()]
-    return torch.gather(g.view(carrier), 1, index).view(g.dtype)
+# Types ``torch.gather`` cannot take on the CPU: they move as raw bits.
+_BIT_GATHER_TYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def _gather_values(g: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``torch.gather`` along dim 1. A gather copies, so the values move
+    unchanged, signed zeros included. It runs in the values' own type,
+    which keeps the gradient to them (the reference's ``pack_24`` is
+    differentiable in its values); fp8 values, which the CPU cannot
+    gather, move as uint8 bits and carry no gradient."""
+    if g.dtype not in _BIT_GATHER_TYPES:
+        return torch.gather(g, 1, index)
+    return torch.gather(g.view(torch.uint8), 1, index).view(g.dtype)
 
 
 def pack_24(w24: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -87,7 +94,7 @@ def pack_24(w24: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     pos = torch.arange(4, dtype=torch.int32, device=w24.device)[None, :, None]
     key = torch.where(nz, pos, pos + 4)       # nonzeros sort before zeros
     order = torch.argsort(key, dim=1, stable=True)[:, :2, :]   # (G, 2, N)
-    values = _gather_bits(g, order).reshape(K // 2, N)
+    values = _gather_values(g, order).reshape(K // 2, N)
     idx = order.to(torch.uint8).reshape(K // 8, 4, N)
     meta = (idx[:, 0] | (idx[:, 1] << 2) | (idx[:, 2] << 4)
             | (idx[:, 3] << 6))

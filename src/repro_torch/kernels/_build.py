@@ -12,7 +12,8 @@ rebuilt and a stale library is never loaded. :func:`build` starts one
 
 Pointers and the stream cross into C as ``ctypes.c_void_p``, integers as
 ``ctypes.c_int``. Every C entry point returns ``cudaGetLastError()`` after
-its launch; :func:`check` raises on anything but 0.
+its launch; :func:`check` raises on anything but 0. :func:`refuse_grad`
+is every wrapper's first check: a kernel has no backward.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gemm", "flash_attention", "sparse24_gemm", "block24_gemm",
@@ -141,3 +144,20 @@ def load(name: str) -> ctypes.CDLL:
 def check(status: int, what: str) -> None:
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when autograd would have to differentiate through ``what``:
+    grad mode on and an operand that requires grad. The kernels have no
+    backward, and a tensor filled through ``ctypes`` has no ``grad_fn``,
+    so the graph would be cut without a word. The reference's
+    ``jax.grad`` through a ``pallas_call`` raises too; the registry's
+    differentiable entries run a kernel inside an autograd ``Function``'s
+    forward, where grad mode is off. Checked on every device, so the CPU
+    twin refuses as the card does."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: autograd through a kernel entry point "
+            "is refused (differentiate through the registry's entries, "
+            "which run the kernel forward and the torch reference backward)")

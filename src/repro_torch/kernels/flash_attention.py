@@ -16,6 +16,8 @@ ring and accumulators are twice as large) and folded in a fixed order:
 
 ``flash_attention`` launches the kernel for CUDA tensors and raises on what
 it does not take; for CPU tensors it computes :func:`flash_attention_plain`.
+It is forward only, as the reference's kernel is: under grad mode an
+operand that requires grad is refused on either device.
 """
 from __future__ import annotations
 
@@ -80,6 +82,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q (B, h, Sq, hd); k/v (B, kvh, Skv, hd) → (B, h, Sq, hd)."""
+    _build.refuse_grad("flash_attention", q, k, v)
     devs = {q.device.type, k.device.type, v.device.type}
     if devs == {"cpu"}:
         return flash_attention_plain(q, k, v, causal=causal)

@@ -8,7 +8,9 @@ itself, so unlike the TPU kernel it takes every shape.
 ``fp8_matmul`` launches the kernel for CUDA tensors, with the tile and K
 splits of :func:`gemm_plan.launch_plan`, and raises on what it does not
 take; for CPU tensors it computes :func:`fp8_matmul_plain`, the kernel's
-plain PyTorch twin (f32 operands, f32 accumulation).
+plain PyTorch twin (f32 operands, f32 accumulation). On either device it
+refuses an operand that requires grad under grad mode
+(:func:`_build.refuse_grad`).
 
 ``fp8_matmul_batched`` is the same GEMM over a stack of E products of one
 shape, (E, M, K) × (E, K, N), in one launch: the reference vmaps its GEMM
@@ -81,6 +83,7 @@ def _count(x: torch.Tensor) -> None:
 def fp8_matmul(x: torch.Tensor, w: torch.Tensor,
                out_dtype=torch.float32) -> torch.Tensor:
     """x (M, K) × w (K, N) → (M, N) in ``out_dtype`` (f32 or bf16)."""
+    _build.refuse_grad("fp8_matmul", x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return fp8_matmul_plain(x, w, out_dtype)
     _check_operands(x, w, out_dtype, 2, "(M, K) x (K, N)")
@@ -107,6 +110,7 @@ def fp8_matmul_batched(x: torch.Tensor, w: torch.Tensor,
     """x (E, M, K) × w (E, K, N) → (E, M, N) in ``out_dtype``: E products
     of one shape in one launch (one count), each member planned and summed
     as :func:`fp8_matmul` would plan and sum it alone."""
+    _build.refuse_grad("fp8_matmul_batched", x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return fp8_matmul_batched_plain(x, w, out_dtype)
     _check_operands(x, w, out_dtype, 3, "(E, M, K) x (E, K, N)")

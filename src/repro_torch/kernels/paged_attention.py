@@ -17,7 +17,8 @@ splits from the shape alone, so every call on one shape sums in the same
 order and gives the same bits.
 
 :func:`paged_flash_decode` launches the kernel for CUDA tensors and raises
-on what it does not take; for CPU tensors it computes
+on what it does not take (and, on either device, on an operand that
+requires grad under grad mode: the kernel is forward only); for CPU tensors it computes
 :func:`paged_flash_decode_plain`, which returns 0 on a row with no valid
 position, as the TPU kernel does. :func:`paged_attention_reference` is the
 reference's gather-then-softmax oracle, kept with its own behaviour on such
@@ -213,6 +214,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     the kernel (which folds its splits itself). Page ids are not checked
     against the pool size (that costs a device sync)."""
     tensors = (q, k_pages, v_pages, page_map, lengths)
+    _build.refuse_grad("paged_flash_decode", q, k_pages, v_pages)
     devs = {t.device.type for t in tensors}
     if devs == {"cpu"}:
         return paged_flash_decode_plain(*tensors)

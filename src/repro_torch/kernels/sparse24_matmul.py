@@ -17,7 +17,8 @@ Ports of ``repro/kernels/sparse24_matmul.py``:
 Each launches its kernel for CUDA tensors, with the tile and K splits of
 :func:`gemm_plan.launch_plan`, and raises on what it does not take; for CPU
 tensors it computes its plain PyTorch twin (:func:`sparse24_matmul_plain`,
-:func:`block24_matmul_plain`).
+:func:`block24_matmul_plain`). Under grad mode each refuses an operand
+that requires grad, on either device (:func:`_build.refuse_grad`).
 """
 from __future__ import annotations
 
@@ -68,6 +69,7 @@ def sparse24_matmul_plain(x: torch.Tensor, values: torch.Tensor,
 def sparse24_matmul(x: torch.Tensor, values: torch.Tensor, meta: torch.Tensor,
                     out_dtype=torch.bfloat16) -> torch.Tensor:
     """x (M, K) × packed (values (K/2, N), meta (K/8, N)) → (M, N)."""
+    _build.refuse_grad("sparse24_matmul", x, values, meta)
     if all(t.device.type == "cpu" for t in (x, values, meta)):
         return sparse24_matmul_plain(x, values, meta, out_dtype)
     _on_one_cuda_device(x, values, meta)
@@ -148,6 +150,7 @@ def _kept_tensor(kept: Tuple[int, ...], device: torch.device) -> torch.Tensor:
 def block24_matmul(x: torch.Tensor, w_packed: torch.Tensor, kept_idx,
                    block: int = 128, out_dtype=torch.bfloat16) -> torch.Tensor:
     """x (M, K) × w_packed (K/2, N) over the kept K-blocks → (M, N)."""
+    _build.refuse_grad("block24_matmul", x, w_packed)
     kept = tuple(int(i) for i in kept_idx)
     _check_block24(x, w_packed, kept, block)
     if x.device.type == "cpu" and w_packed.device.type == "cpu":

@@ -15,6 +15,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import DEFAULT_RT, RuntimeCfg, apply_rope, dense
@@ -67,6 +68,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cq, ck = min(rt.chunk_q, sq), min(rt.chunk_kv, skv)
     nq, nk = -(-sq // cq), -(-skv // ck)
     assert sq % cq == 0 and skv % ck == 0, (sq, cq, skv, ck)
+    # the reference's jax.checkpoint per block: backward recomputes the
+    # block's scores instead of keeping them (only where a gradient flows)
+    remat = rt.remat_blocks and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
 
     outs = []
     for i in range(nq):
@@ -80,9 +85,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = torch.zeros((b, h, cq, hd), dtype=torch.float32,
                           device=q.device)
         for j in range(j_lo, j_hi):
-            bm, bl, bacc = _attn_block(
-                qi, k[:, j * ck:(j + 1) * ck], v[:, j * ck:(j + 1) * ck],
-                qpos0, j * ck, causal=causal, window=window, scale=scale)
+            def block(a, bk, bv, qp=qpos0, kp=j * ck):
+                return _attn_block(a, bk, bv, qp, kp, causal=causal,
+                                   window=window, scale=scale)
+            kj, vj = k[:, j * ck:(j + 1) * ck], v[:, j * ck:(j + 1) * ck]
+            if remat:
+                bm, bl, bacc = checkpoint(block, qi, kj, vj,
+                                          use_reentrant=False,
+                                          preserve_rng_state=False)
+            else:
+                bm, bl, bacc = block(qi, kj, vj)
             m_new = torch.maximum(m, bm)
             c1, c2 = torch.exp(m - m_new), torch.exp(bm - m_new)
             l = l * c1 + bl * c2

@@ -33,14 +33,23 @@ class RuntimeCfg:
     the chunk of the mamba2 and rwkv6 prefill scans (with
     ``cfg.ssm_chunk``); the port always loops over the chunks in Python,
     so the reference's ``static_loops`` and ``max_static_chunks`` have no
-    counterpart."""
+    counterpart. ``remat_blocks`` (the reference's default) recomputes
+    each (q-chunk, kv-chunk) block of ``chunked_attention`` in backward
+    instead of keeping its scores (memory only, never values);
+    ``param_dtype`` is the reference's field and is read by nothing, in
+    either package: weights take ``init_params``' ``dtype`` (bf16 by
+    default) whatever it says. The reference's ``opt_barrier`` (an XLA
+    scheduling hint between attention blocks) has no counterpart: PyTorch
+    runs the blocks in program order."""
     chunk_q: int = 1024
     chunk_kv: int = 1024
     use_pallas: bool = False
+    param_dtype: Any = torch.bfloat16
     act_dtype: Any = torch.bfloat16
     ssm_chunk: int = 256
     f32_batched_dots: bool = True
     moe_gather_dispatch: bool = False
+    remat_blocks: bool = True
     # Explicit execution policy; wins over cfg.precision / use_pallas.
     policy: Any = None
 

@@ -1,7 +1,9 @@
 """Decoder stack for every block kind of the repo's configs.
 
-Twin of ``repro/models/transformer.py`` for the serving slices:
-``init_params``, ``prefill``, ``decode_step`` (with ``_decode_attn``) and
+Twin of ``repro/models/transformer.py``: the training forward
+(``forward``, ``forward_hidden``: no caches, super-layers checkpointed
+under ``cfg.remat == "full"``), and for serving ``init_params``,
+``prefill``, ``decode_step`` (with ``_decode_attn``) and
 ``init_cache``, the paged twins ``paged_decode_step`` (with
 ``_paged_decode_attn``) and ``init_paged_cache``, and the speculative
 verify ``multi_decode_step`` / ``paged_multi_decode_step`` with the
@@ -38,9 +40,11 @@ replaces is left as it was, so keeping a reference to it is a snapshot.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import execution as ex
@@ -210,6 +214,130 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     logits = lm_logits(x[:, -1], params["head"], cfg.vocab_size,
                        policy=ex.policy_from(cfg, rt))
     return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# Training forward (no caches)
+# ---------------------------------------------------------------------------
+
+def train_block(kind: str, x: torch.Tensor, p: Params, cfg: ArchConfig,
+                rt: RuntimeCfg):
+    """One layer of the training forward, the reference's ``_apply_block``
+    without a cache: (x, the layer's aux loss in f32, 0 but for MoE)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind == "mamba2":
+        return x + m2.mamba2_block(h, p["mamba"], cfg, rt), aux
+    if kind == "rwkv6":
+        x = x + rk.rwkv6_block(h, p["rwkv"], cfg, rt)
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        return x + rk.rwkv6_channel_mix(h2, p["rwkv"], cfg, rt), aux
+    x = x + attn_mod.attention_block(h, p["attn"], cfg, rt,
+                                     window=_window(cfg, kind))
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if kind == "attn_moe":
+        mo, aux = moe_mod.moe_mlp(h, p["moe"], cfg, rt)
+        return x + mo, aux
+    return x + swiglu_mlp(h, p["mlp"], cfg, rt), aux
+
+
+def _run_stack(params: Params, x: torch.Tensor, cfg: ArchConfig,
+               rt: RuntimeCfg):
+    """The reference's ``_run_stack`` without caches: the super-layers in
+    turn, their aux losses summed (each super-layer's own sum added to the
+    carry, as its scan does), then the hybrid tail. ``cfg.remat == "full"``
+    checkpoints each super-layer while a gradient flows: backward runs its
+    forward again (so each kernel in it launches twice per step) instead of
+    keeping its activations. ``"dots"`` (save the dot outputs) is used
+    only by the reference's ``launch/perf.py`` and waits for that port."""
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' comes with the port of launch/perf.py "
+            "(ROADMAP item 14)")
+    kinds = layer_kinds(cfg)
+    n_pat = len(cfg.superlayer_pattern)
+    n_stack = cfg.num_superlayers * n_pat
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, n_stack, n_pat):
+        ps = [block_params(kinds[i], params["layers"][i], params)
+              for i in range(lo, lo + n_pat)]
+
+        def body(h, ks=kinds[lo:lo + n_pat], ps=ps):
+            total = torch.zeros((), dtype=torch.float32, device=h.device)
+            for kind, p in zip(ks, ps):
+                h, a = train_block(kind, h, p, cfg, rt)
+                total = total + a
+            return h, total
+
+        if remat:
+            # the forward draws no random numbers: no RNG state to keep
+            x, a = checkpoint(body, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = body(x)
+        aux = aux + a
+    for i in range(n_stack, len(kinds)):
+        x, _ = train_block(kinds[i], x, params["layers"][i], cfg, rt)
+    return x, aux
+
+
+@dataclasses.dataclass(frozen=True)
+class RefLeaf:
+    """Where a port param sits in the reference's tree: the name of the
+    reference's leaf (``layers/b{i}/...`` for block ``i`` of every
+    super-layer, ``tail/...`` for every tail layer, else its own path) and
+    that leaf's ndim."""
+    name: str
+    ndim: int
+
+
+def reference_leaves(params: Params, cfg: ArchConfig):
+    """A tree of the params' structure with a :class:`RefLeaf` per leaf.
+    The reference stacks each block of the super-layer pattern over
+    ``cfg.num_superlayers`` (and the hybrid tail over its layers) on a
+    new leading axis, so the training rules that look at a whole leaf
+    span the stack: AdamW decays leaves of ``ndim >= 2``, a layer's norm
+    scale among them, and int8 gradient compression takes one scale per
+    stacked leaf."""
+    n_pat = len(cfg.superlayer_pattern)
+    n_stack = cfg.num_superlayers * n_pat
+
+    def walk(sub, name, stacked):
+        if isinstance(sub, dict):
+            return {k: walk(v, f"{name}/{k}", stacked)
+                    for k, v in sub.items()}
+        return RefLeaf(name, sub.dim() + stacked)
+
+    out = {k: walk(v, k, 0) for k, v in params.items() if k != "layers"}
+    out["layers"] = [
+        walk(p, f"layers/b{i % n_pat}" if i < n_stack else "tail", 1)
+        for i, p in enumerate(params["layers"])]
+    return out
+
+
+def forward_hidden(params: Params, inputs: torch.Tensor, cfg: ArchConfig,
+                   rt: RuntimeCfg = DEFAULT_RT):
+    """Backbone only: the final normed hidden (B, S, d) and the aux loss.
+    ``inputs`` are (B, S) tokens or (B, S, d) embeddings. The train loss
+    fuses the LM head per sequence chunk (``runtime/train_loop.py``), so
+    the full f32 (B, S, V) logits are never made."""
+    if inputs.dim() == 2:
+        x = embed_tokens(inputs, params["embed"]).to(rt.act_dtype)
+    else:
+        x = inputs.to(rt.act_dtype)
+    x, aux = _run_stack(params, x, cfg, rt)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def forward(params: Params, inputs: torch.Tensor, cfg: ArchConfig,
+            rt: RuntimeCfg = DEFAULT_RT):
+    """inputs (B, S) tokens or (B, S, d) embeddings → (logits (B, S, Vp)
+    f32, aux loss)."""
+    x, aux = forward_hidden(params, inputs, cfg, rt)
+    logits = lm_logits(x, params["head"], cfg.vocab_size,
+                       policy=ex.policy_from(cfg, rt))
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
