@@ -460,7 +460,9 @@ class OccupancyAdvisor:
     """
 
     # Priors, carried over unchanged from the reference (its Table-3/§9.2
-    # values, in units of cores). They are not H100 measurements.
+    # values, in units of cores), so CPU decisions equal the reference's.
+    # They are not H100 measurements: a knee measured on the card reaches
+    # resolve_policy only through an installed artifact (autotune.install).
     FP8_TILE_THRESHOLD = 2.0        # ×cores
     BF16_TILE_THRESHOLD = 1.0
 

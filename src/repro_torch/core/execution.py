@@ -8,7 +8,17 @@ the policy scope, :func:`policy_from`, :func:`apply_policy`, the packed
 
 It also holds the block-shape cache (:class:`BlockShapeCache`, seeded
 from Table 3, and the module-level :data:`BLOCK_CACHE` that
-``sweep_paged_tilings`` records into) and :func:`parse_pagedsweep_name`.
+``sweep_paged_tilings`` and :func:`seed_cache_from_records` record into),
+the sweep-name parsers (:func:`parse_blocksweep_name`,
+:func:`parse_pagedsweep_name`), the module default policy and backend
+(:func:`set_default_policy`, :func:`set_default_backend`) and
+:func:`raw_matmul`, the characterization sweeps' dispatch.
+
+The block cache is inert under the ``hopper`` backends: their GEMM
+kernels take ``bm/bn/bk`` and drop them, and tile and K splits come from
+``kernels/gemm_plan.plan``, a pure function of (M, N, K, kind, SM count)
+(see ``kernels/registry.py``). Cached blocks reach a policy's
+``block_m/n/k`` and change nothing the kernels compute.
 
 The runtime half: :func:`resolve_policy` (the occupancy advisor at
 session set-up, with :func:`set_default_advisor`), :func:`dispatch_matmul`
@@ -19,8 +29,7 @@ measured decode latencies.
 Policy strings written for the JAX package parse unchanged: ``pallas``
 names the ``hopper`` backend, ``pallas_sparse24`` the ``hopper_sparse24``
 backend, ``pallas_paged`` the ``hopper_paged`` backend and ``jnp`` the
-``torch`` backend. Not ported yet: ``seed_cache_from_records`` and the
-module-level default policy/backend setters.
+``torch`` backend.
 """
 from __future__ import annotations
 
@@ -178,8 +187,14 @@ def parse_policy(spec: str, base: Optional[ExecutionPolicy] = None
     return dataclasses.replace(pol, **updates)
 
 
-# the backend of a call site with no policy and ``use_pallas`` off
+# The initial module default backend: the backend of a call site with no
+# policy and ``use_pallas`` off (the reference's is ``jnp``).
 DEFAULT_BACKEND = "torch"
+
+# Module-level defaults: benchmarks and launchers flip these once instead
+# of threading a policy through every call site.
+_default_policy: Optional[ExecutionPolicy] = None
+_default_backend: str = DEFAULT_BACKEND
 
 # Partition-local policy scope (context-var based, as in the reference).
 _scope_policy: "contextvars.ContextVar[Optional[ExecutionPolicy]]" = \
@@ -189,7 +204,8 @@ _scope_policy: "contextvars.ContextVar[Optional[ExecutionPolicy]]" = \
 @contextlib.contextmanager
 def policy_scope(policy: Optional[ExecutionPolicy]):
     """Make ``policy`` the contextual default for the enclosed block.
-    Precedence: explicit ``rt.policy`` > this scope > derived switches."""
+    Precedence: explicit ``rt.policy`` > this scope > the module default
+    policy (:func:`set_default_policy`) > derived switches."""
     tok = _scope_policy.set(policy)
     try:
         yield policy
@@ -197,26 +213,53 @@ def policy_scope(policy: Optional[ExecutionPolicy]):
         _scope_policy.reset(tok)
 
 
+def get_scope_policy() -> Optional[ExecutionPolicy]:
+    return _scope_policy.get()
+
+
+def set_default_policy(policy: Optional[ExecutionPolicy]) -> None:
+    global _default_policy
+    _default_policy = policy
+
+
 def get_default_policy() -> ExecutionPolicy:
     scoped = _scope_policy.get()
-    return scoped if scoped is not None \
-        else ExecutionPolicy(backend=DEFAULT_BACKEND)
+    if scoped is not None:
+        return scoped
+    return _default_policy if _default_policy is not None \
+        else ExecutionPolicy(backend=_default_backend)
+
+
+def set_default_backend(name: str) -> None:
+    """Make ``name`` (a registry backend, or its JAX name) the module
+    default backend."""
+    name = BACKEND_ALIASES.get(name, name)
+    registry.get_backend(name)          # validate eagerly
+    global _default_backend
+    _default_backend = name
+
+
+def default_backend() -> str:
+    return _default_backend
 
 
 def policy_from(cfg, rt) -> ExecutionPolicy:
     """Effective policy for a model call site: explicit ``rt.policy`` >
-    :func:`policy_scope` > derived from ``cfg.precision``,
-    ``cfg.sparsity_24`` and ``rt.use_pallas``."""
+    :func:`policy_scope` > the module default policy > derived from
+    ``cfg.precision``, ``cfg.sparsity_24`` and ``rt.use_pallas`` with the
+    module default backend."""
     pol = getattr(rt, "policy", None)
     if pol is not None:
         return pol
     scoped = _scope_policy.get()
     if scoped is not None:
         return scoped
+    if _default_policy is not None:
+        return _default_policy
     return ExecutionPolicy(
         precision=cfg.precision,
         sparsity="sparse24" if cfg.sparsity_24 else "dense",
-        backend="hopper" if rt.use_pallas else DEFAULT_BACKEND)
+        backend="hopper" if rt.use_pallas else _default_backend)
 
 
 def apply_policy(cfg, rt, policy: ExecutionPolicy):
@@ -244,6 +287,27 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
     if pol.precision == "fp8" and w.dim() == 2:
         return be.fp8(x, w, out_dtype=out_dtype, **pol.blocks)
     return be.dense(x, w, out_dtype=out_dtype, **pol.blocks)
+
+
+def raw_matmul(a: torch.Tensor, b: torch.Tensor, *,
+               backend: Optional[str] = None,
+               out_dtype=torch.float32) -> torch.Tensor:
+    """The characterization sweeps' dispatch on already-cast operands: fp8
+    operands go through the pre-quantized GEMM entry (unit scales), every
+    other type through ``dense``, so one default backend re-targets every
+    sweep. Under ``hopper`` on the card both reach kernel A, which takes
+    bf16 and fp8 operands only: f32 operands raise there."""
+    name = backend or get_default_policy().backend
+    be = registry.get_backend(BACKEND_ALIASES.get(name, name))
+    is_fp8 = a.dtype in (torch.float8_e4m3fn, torch.float8_e5m2)
+    tr = _ambient_tracer()
+    if tr is not None:
+        tr.record_matmul(int(a.shape[0]), int(a.shape[-1]),
+                         int(b.shape[-1]), precision=_dtype_key(a.dtype),
+                         backend=name, op="fp8_qdot" if is_fp8 else "dense")
+    if is_fp8:
+        return be.fp8_qdot(a, b, 1.0, 1.0, out_dtype=out_dtype)
+    return be.dense(a, b, out_dtype=out_dtype)
 
 
 # The backends whose expert GEMMs run batched on kernel A (the reference's
@@ -352,6 +416,28 @@ SWEEP_DTYPES = {"fp8": torch.float8_e4m3fn, "bf16": torch.bfloat16,
                 "fp16": torch.float16, "fp32": torch.float32}
 
 
+def parse_blocksweep_name(name: str
+                          ) -> Optional[Tuple[int, int, int, str,
+                                              Tuple[int, int, int]]]:
+    """Parse a ``blocksweep/{prec}/{m}x{n}x{k}/{bm}x{bn}x{bk}`` record
+    name into ``(m, n, k, prec, (bm, bn, bk))``; None if it isn't one or
+    names a precision outside :data:`SWEEP_DTYPES`. The one parser of both
+    ingestion paths (:func:`seed_cache_from_records` and
+    :meth:`repro_torch.core.autotune.AutotuneStore.add_records`)."""
+    parts = name.split("/")
+    if len(parts) != 4 or parts[0] != "blocksweep" \
+            or parts[1] not in SWEEP_DTYPES:
+        return None
+    try:
+        m, n, k = (int(v) for v in parts[2].split("x"))
+        blocks = tuple(int(v) for v in parts[3].split("x"))
+    except ValueError:
+        return None
+    if len(blocks) != 3:
+        return None
+    return m, n, k, parts[1], blocks
+
+
 def parse_pagedsweep_name(name: str
                           ) -> Optional[Tuple[int, int, int, str,
                                               Tuple[int, int, int]]]:
@@ -372,6 +458,43 @@ def parse_pagedsweep_name(name: str
     if len(blocks) != 3:
         return None
     return m, n, k, parts[1], blocks
+
+
+def seed_cache_from_records(records: Sequence[Any],
+                            cache: Optional[BlockShapeCache] = None) -> int:
+    """Ingest probe Records into the block cache; returns how many were
+    folded in.
+
+    ``latency/{prec}/{m}x{n}x{k}`` rows (the shape probe) keep the
+    precision-preferred blocks clamped to the shape: the probe measures a
+    shape, not a tiling. ``blocksweep/{prec}/{m}x{n}x{k}/{bm}x{bn}x{bk}``
+    rows carry the blocks that were measured, so the cache's per-key
+    best-latency rule promotes the sweep's winner. Under ``hopper`` those
+    blocks are inert (module docstring)."""
+    # not `cache or BLOCK_CACHE`: an empty cache is falsy (len 0)
+    cache = cache if cache is not None else BLOCK_CACHE
+    n_in = 0
+    for r in records:
+        sweep = parse_blocksweep_name(r.name)
+        if sweep is not None:
+            m, n, k, prec, blocks = sweep
+            cache.record(m, k, n, SWEEP_DTYPES[prec], blocks,
+                         r.us_per_call * 1e-6)
+            n_in += 1
+            continue
+        parts = r.name.split("/")
+        if len(parts) != 3 or parts[0] != "latency":
+            continue
+        prec = parts[1]
+        m, n, k = (int(v) for v in parts[2].split("x"))
+        dtype = SWEEP_DTYPES.get(prec)
+        pref = BlockShapeCache.TABLE3_PREFERRED.get(prec)
+        if dtype is None or pref is None:
+            continue
+        blocks = tuple(min(b, d) for b, d in zip(pref, (m, n, k)))
+        cache.record(m, k, n, dtype, blocks, r.us_per_call * 1e-6)
+        n_in += 1
+    return n_in
 
 
 # ---------------------------------------------------------------------------
@@ -421,8 +544,13 @@ def resolve_policy(m: int, k: int, n: int, *,
     otherwise a packed-2:4 policy on a ``hopper`` default takes
     ``hopper_sparse24``, else the module default. The advisor's core count
     is the card's SM count on the card, so the card may resolve another
-    policy than the CPU for the same shape. The decision is recorded to
-    ``tracer`` (or the ambient telemetry tracer)."""
+    policy than the CPU for the same shape. With no explicit ``advisor``
+    the module default applies: a calibrated one once
+    :func:`repro_torch.core.autotune.install` has loaded a measured
+    artifact, the prior one otherwise. The policy's blocks come from the
+    block cache, as in the reference; under ``hopper`` they are inert
+    (module docstring). The decision is recorded to ``tracer`` (or the
+    ambient telemetry tracer)."""
     advisor = advisor or get_default_advisor()
     profile = cc.WorkloadProfile(
         precision=precision,
@@ -435,7 +563,7 @@ def resolve_policy(m: int, k: int, n: int, *,
     chosen_backend = BACKEND_ALIASES.get(backend, backend) \
         if backend is not None else (
             "hopper_sparse24" if sparsity == "sparse24"
-            and DEFAULT_BACKEND.startswith("hopper") else DEFAULT_BACKEND)
+            and _default_backend.startswith("hopper") else _default_backend)
     registry.get_backend(chosen_backend)
 
     dtype = torch.float8_e4m3fn if advice.suggested_precision == "fp8" \

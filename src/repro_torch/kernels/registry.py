@@ -22,8 +22,14 @@ Registered backends:
               call (twin of ``pallas_sparse24``)
 
 ``x`` may carry leading batch dims; they are flattened into M. ``bm/bn/bk``
-are accepted for signature parity and ignored: the CUDA kernel picks its
-own tile from M.
+are accepted for signature parity and ignored, so the block-shape cache
+(``core/execution.BLOCK_CACHE``, seeded by the autotune store) is inert
+under ``hopper``: the tile and K splits of kernels A and D come from
+``kernels/gemm_plan.plan``, a pure function of (M, N, K, kind, SM count).
+The reference hands the cached blocks to its Pallas kernel. The port does
+not, because a plan read from a timing artifact would make a process's
+logits depend on which artifact it loaded: other splits sum in another
+order, and the dense and paged logits are bit-equal only under one plan.
 """
 from __future__ import annotations
 
@@ -255,8 +261,12 @@ def _hopper_fp8_qdot(x_q, w_q, x_inv_scale=1.0, w_inv_scale=1.0, *,
                      out_dtype=torch.float32, bm=None, bn=None, bk=None):
     x2, lead = _flatten_lead(x_q)
     acc = _gemm(x2, w_q, torch.float32)
-    return (acc * (x_inv_scale * w_inv_scale)).to(out_dtype).reshape(
-        *lead, w_q.shape[-1])
+    scale = x_inv_scale * w_inv_scale
+    # unit scales given as numbers (execution.raw_matmul's) need no
+    # descale pass over the output: acc * 1.0 is acc, bit for bit
+    if not (isinstance(scale, (int, float)) and scale == 1.0):
+        acc = acc * scale
+    return acc.to(out_dtype).reshape(*lead, w_q.shape[-1])
 
 
 def _hopper_sparse24(x, values, meta, *, out_dtype=torch.bfloat16, bm=None,

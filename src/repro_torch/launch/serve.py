@@ -14,7 +14,9 @@ the hand-written GEMM kernel and prefill attention through the flash
 kernel. ``--policy bf16:sparse24:hopper`` prunes and packs the weights 2:4
 once and sends every packed linear through the packed 2:4 GEMM kernel;
 ``--policy auto`` lets the occupancy advisor pick (``--backend`` then
-names the backend it may use). ``--paged`` serves from a pool of
+names the backend it may use); with ``--autotune`` it decides from the
+calibrated artifact of ``launch/profile.py`` (``$REPRO_AUTOTUNE_DIR`` or
+``build/repro_torch_autotune``). ``--paged`` serves from a pool of
 ``--page-size``-row pages with per-slot page tables; its greedy tokens
 equal the dense cache's.
 
@@ -154,6 +156,11 @@ def make_parser() -> argparse.ArgumentParser:
                     help="SLO class for every shorthand tenant "
                          "('latency:12', 'latency:0.05@wall_s', "
                          "'throughput:1.5', 'batch:0.9')")
+    ap.add_argument("--autotune", action="store_true",
+                    help="load the persistent autotune artifact "
+                         "(launch/profile.py; $REPRO_AUTOTUNE_DIR or "
+                         "build/repro_torch_autotune) and resolve policies "
+                         "from calibrated thresholds")
     ap.add_argument("--controller", default=None, nargs="?", const="on",
                     metavar="SPEC",
                     help="SLO closed loop (runtime/controller.py): bare "
@@ -170,7 +177,7 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
 
     from repro_torch.configs import get_arch, get_reduced
-    from repro_torch.core import execution as ex
+    from repro_torch.core import autotune, execution as ex
     from repro_torch.models import init_params
     from repro_torch.models.layers import RuntimeCfg
     from repro_torch.runtime import telemetry
@@ -180,6 +187,10 @@ def main(argv=None):
     from repro_torch.runtime.server import ServingRuntime, ServingSpec
 
     device = resolve_device(args.device)
+    store = autotune.install() if args.autotune else None
+    if args.autotune:
+        print(f"[serve] autotune artifact "
+              f"{'loaded: ' + store.path if store else 'not found'}")
     want_tracer = args.telemetry or args.metrics_out or args.trace_out
     tracer = telemetry.Tracer() if want_tracer else None
     if tracer is not None:
@@ -200,6 +211,11 @@ def main(argv=None):
             policy = dataclasses.replace(policy, backend=backend)
         use_pallas = policy.backend in HOPPER_BACKENDS
     rt = RuntimeCfg(use_pallas=use_pallas)
+    resolved_under = policy.backend if policy != "auto" \
+        else backend or ex.default_backend()
+    note = store and store.backend_note(resolved_under)
+    if note:
+        print(f"[serve] {note}")
 
     if args.spec:
         spec = ServingSpec.load(args.spec)

@@ -14,8 +14,9 @@ Without ``--device`` everything runs on ``cuda``.
 
 ``--backend hopper`` (or its JAX name ``pallas``) runs every linear's
 forward on the hand-written GEMM kernel, its backward through the torch
-reference. The reference's ``--autotune`` waits for the port of
-``core/autotune.py`` (ROADMAP item 13).
+reference. ``--autotune`` installs the calibrated artifact of
+``launch/profile.py`` (``$REPRO_AUTOTUNE_DIR`` or
+``build/repro_torch_autotune``) before the policy is resolved.
 """
 from __future__ import annotations
 
@@ -66,6 +67,10 @@ def build_argparser():
     ap.add_argument("--telemetry", action="store_true",
                     help="record per-step wall times; print the telemetry "
                          "summary at exit")
+    ap.add_argument("--autotune", action="store_true",
+                    help="load the persistent autotune artifact "
+                         "(launch/profile.py) so policy resolution uses "
+                         "calibrated thresholds")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     return ap
@@ -74,7 +79,7 @@ def build_argparser():
 def run_once(args) -> int:
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import get_arch, get_reduced
-    from repro_torch.core import execution as ex
+    from repro_torch.core import autotune, execution as ex
     from repro_torch.core.concurrency import resolve_device
     from repro_torch.data.pipeline import Prefetcher, SyntheticLM
     from repro_torch.models import init_params
@@ -85,6 +90,10 @@ def run_once(args) -> int:
     from repro_torch.runtime.fault_tolerance import Heartbeat, StepMonitor
 
     device = resolve_device(args.device)
+    store = autotune.install() if args.autotune else None
+    if args.autotune:
+        print(f"[train] autotune artifact "
+              f"{'loaded: ' + store.path if store else 'not found'}")
     tracer = telemetry.Tracer() if args.telemetry else None
 
     cfg = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
@@ -104,6 +113,10 @@ def run_once(args) -> int:
                 policy, backend=ex.BACKEND_ALIASES.get(args.backend,
                                                        args.backend))
         print(f"[train] execution policy: {policy.spec()}")
+    note = store and store.backend_note(
+        policy.backend if policy else ex.default_backend())
+    if note:
+        print(f"[train] {note}")
 
     rt = RuntimeCfg(chunk_q=min(64, args.seq), chunk_kv=min(64, args.seq),
                     ssm_chunk=32)

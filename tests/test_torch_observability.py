@@ -6,16 +6,19 @@ by both packages' tracers: the tracer summary and views, the metrics
 registry's Prometheus text and JSON, and the Chrome trace with its
 ``validate`` / ``overlapping_groups`` / ``migration_flow_pairs`` results
 must be equal. The SLO controller must take the reference's actions, at
-the reference's steps, on one contended trace.
+the reference's steps, on one contended trace, and the ``top`` dashboard
+must show the reference's frame of that run, its controller line included.
 """
 import json
 
+from repro.launch import top as jtop
 from repro.runtime import controller as jct
 from repro.runtime import metrics as jme
 from repro.runtime import server as jsv
 from repro.runtime import telemetry as jtel
 from repro.runtime import traceview as jtv
 from repro.runtime import workload as jwl
+from repro_torch.launch import top as ttop
 from repro_torch.runtime import controller as tct
 from repro_torch.runtime import metrics as tme
 from repro_torch.runtime import server as tsv
@@ -173,9 +176,9 @@ def _contended(wl):
 def test_slo_controller_actions_match_jax():
     jp, tp = params()
     got = []
-    for sv, ct, wl, p, rt, kw in ((jsv, jct, jwl, jp, JRT, {}),
-                                  (tsv, tct, twl, tp, TRT,
-                                   {"device": "cpu"})):
+    for sv, ct, wl, top, p, rt, kw in ((jsv, jct, jwl, jtop, jp, JRT, {}),
+                                       (tsv, tct, twl, ttop, tp, TRT,
+                                        {"device": "cpu"})):
         spec = sv.ServingSpec(
             partitions=(sv.PartitionSpec(admission="fifo"),),
             batch_slots=2, max_len=64, metrics=True,
@@ -187,8 +190,10 @@ def test_slo_controller_actions_match_jax():
         got.append(([a.to_dict() for a in ctrl.actions], ctrl.counts(),
                      ctrl.checks, wl.token_checksum(done),
                      {t.tenant_id: t.slo_attainment for t in rep.tenants},
-                     runtime.merged_tracer().counts()["controller"]))
+                     runtime.merged_tracer().counts()["controller"],
+                     top.render(runtime)))
     assert got[1] == got[0]
+    assert "CTRL  checks" in got[1][-1]
     assert got[1][1]["freeze"] >= 1
     assert tct.ControllerSpec.parse("interval=2,hold=3").to_dict() == \
         jct.ControllerSpec.parse("interval=2,hold=3").to_dict()

@@ -78,7 +78,8 @@ def test_greedy_tokens_match_jax_in_f32(arch, paged):
 # experts of capacity 1 at decode) flips a token at a logit margin of 0.31,
 # which the logit near-tie rule cannot account for: a near-tie of the
 # router, where a bf16 rounding picks the other expert, moves the logits
-# far more than a rounding of the logits themselves (not measured here).
+# far more than a rounding of the logits themselves. The router's tie is
+# within one bf16 ulp of its input (tests/test_torch_router_tie.py).
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "gemma3-12b"])
 def test_greedy_tokens_match_jax_in_bf16_up_to_a_near_tie(arch):
     want, got, margins = _serve_both(arch, "bf16", False)

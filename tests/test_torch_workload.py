@@ -3,12 +3,15 @@
 ``generate`` must give byte-equal trace JSON for the same spec (numpy
 only), a saved trace must load in either package, and one trace made by
 JAX's ``generate`` and replayed through both runtimes must give the same
-``token_checksum`` and the same per-request step stamps.
+``token_checksum``, the same per-request step stamps and the same
+``top`` dashboard frame.
 """
 import pytest
 
+from repro.launch import top as jtop
 from repro.runtime import server as jsv
 from repro.runtime import workload as jwl
+from repro_torch.launch import top as ttop
 from repro_torch.runtime import server as tsv
 from repro_torch.runtime import workload as twl
 from torch_runtime_parity import CFG, JRT, TRT, params, steps
@@ -40,7 +43,7 @@ def test_generate_is_byte_equal_to_jax(kw, tmp_path):
         jwl.zipf_weights(4, 1.3).tolist()
 
 
-def _replay(sv, wl, trace_json, p, rt, overlap, **kw):
+def _replay(sv, wl, top, trace_json, p, rt, overlap, **kw):
     spec = sv.ServingSpec(
         partitions=(sv.PartitionSpec(policy="bf16:dense:jnp"),
                     sv.PartitionSpec(policy="bf16:sparse24:jnp")),
@@ -49,7 +52,8 @@ def _replay(sv, wl, trace_json, p, rt, overlap, **kw):
     trace = wl.WorkloadTrace.from_json(trace_json)
     done = wl.run_trace(runtime, trace)
     assert len(done) == len(trace.events)
-    return wl.token_checksum(done), steps(done), runtime.step_count
+    return (wl.token_checksum(done), steps(done), runtime.step_count,
+            top.render(runtime))
 
 
 @pytest.mark.parametrize("overlap", [True, False])
@@ -59,7 +63,17 @@ def test_a_jax_trace_replays_to_the_same_checksum(overlap):
         burst_len=3, steps=8, seed=3, prompt_len=(4, 8), max_new=(2, 6),
         slos=("latency:12", None, "batch:0.9")))
     jp, tp = params()
-    want = _replay(jsv, jwl, trace.to_json(), jp, JRT, overlap)
-    got = _replay(tsv, twl, trace.to_json(), tp, TRT, overlap, device="cpu")
-    assert got == want
+    want = _replay(jsv, jwl, jtop, trace.to_json(), jp, JRT, overlap)
+    got = _replay(tsv, twl, ttop, trace.to_json(), tp, TRT, overlap,
+                  device="cpu")
+    assert got[:3] == want[:3]
     assert len(got[0]) == 16
+    # the frames differ only where a partition row names its policy's
+    # backend: the reference's "jnp" is the port's "torch", two letters
+    # longer, which moves that row's later columns
+    jrows, trows = want[3].splitlines(), got[3].splitlines()
+    assert len(trows) == len(jrows)
+    for j, t in zip(jrows, trows):
+        if j != t:
+            assert j.startswith("  p") and ":jnp" in j, (j, t)
+            assert t.split() == j.replace(":jnp", ":torch").split()
