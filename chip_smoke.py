@@ -118,6 +118,18 @@ periodic checkpoint (a supervised restart) bit for bit under
 deterministic algorithms; and the
 refusal of autograd through every kernel entry point on the card.
 
+Then ``[dist]``: the distributed dry-run (``launch/{dryrun,perf}.py``,
+meta tensors over a fake process group, nothing computed) run as a user
+runs it on llama3-8b's ``train_4k`` and ``decode_32k`` cells, the
+``baseline`` and ``decode_2d_tp`` perf variants (their wire bytes by
+collective kind printed) and ``train_4k``'s ``remat_dots`` (below the
+dry-run's FLOPs), no record with a fold run gathered; ``[train]``'s own step and ``[serve]``'s
+llama3-8b decode step dry-run on a 1x1 mesh, each roofline bound held
+at or below 1.05 times the step the card measured (its state bytes
+equal to those ``[train]`` allocated; the roofline shares printed); and
+one ``[train]`` step under ``remat="dots"``, bit-equal to ``"full"``
+with kernel A launched twice per linear.
+
 Every kernel is timed by its device time (torch.profiler) with its
 operands out of L2 (rotating copies where they total less than its 50 MB),
 checked against its plain version and for bit-equal repeats, and prints its
@@ -159,11 +171,26 @@ PROMPT_LENS = (128, 77)
 # every element: 0.49 measured at the first prefill, so 1.0.
 LOGIT_TOL = {"bf16": 0.15, "fp8": 1.0}
 
-# H100 SXM data-sheet peaks (dense): bytes/s and operations/s per type
-# (f32 outside the tensor cores).
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "e4m3": 1979e12, "e5m2": 1979e12,
-              "f32": 67e12}
+_PEAKS = None
+
+
+def peaks():
+    """(HBM bytes/s, {type: operations/s}): the H100 SXM's dense data-sheet
+    peaks (f32 outside the tensor cores), from the port's roofline,
+    ``src/repro_torch/launch/roofline.py`` of this checkout, loaded from
+    its file (it imports nothing of the port), so every bound of this
+    script and of the dry-run has one source."""
+    global _PEAKS
+    if _PEAKS is None:
+        import importlib.util
+        name = "_chip_smoke_roofline"
+        spec = importlib.util.spec_from_file_location(
+            name, SRC / "repro_torch" / "launch" / "roofline.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        _PEAKS = (mod.HBM_BW, dict(mod.PEAK_OPS_S))
+    return _PEAKS
 
 
 def fail(msg: str) -> None:
@@ -319,8 +346,9 @@ def device_ms(fn, iters: int = 50):
 
 
 def bound_ms(n_bytes: float, n_ops: float, kind: str):
-    t_bytes = n_bytes / HBM_BYTES_S
-    t_ops = n_ops / PEAK_OPS_S[kind]
+    hbm, ops = peaks()
+    t_bytes = n_bytes / hbm
+    t_ops = n_ops / ops[kind]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -3969,7 +3997,235 @@ def train_phase():
     print(f"[train] phase {time.perf_counter() - t_phase:.1f}s", flush=True)
     results = {f"train {tag}": {"launches": a["launches"]}
                for tag, a in arms.items()}
-    return results, rows, drow
+    return results, rows, drow, summary
+
+
+# ---------------------------------------------------------------------------
+# [dist]: the distributed dry-run, and the card's own steps under its bound
+# ---------------------------------------------------------------------------
+
+# (shape, CLI, perf variants): remat_dots is held below the train_4k
+# dry-run's FLOPs (it recomputes no linear)
+DIST_CELLS = (("train_4k", "dryrun", None), ("decode_32k", "dryrun", None),
+              ("decode_32k", "perf", "baseline,decode_2d_tp"),
+              ("train_4k", "perf", "remat_dots"))
+# a roofline bound above the measured step by more than this is impossible
+DIST_BOUND_SLACK = 1.05
+
+
+def dist_cli(shape: str, tool: str, variants, out: Path):
+    """``python -m repro_torch.launch.{dryrun,perf}`` on llama3-8b, as a
+    user runs it (CPU work on meta tensors over a fake process group)."""
+    args = [sys.executable, "-m", f"repro_torch.launch.{tool}",
+            "--arch", "llama3-8b", "--shape", shape, "--out", str(out)]
+    if tool == "perf":
+        args += ["--variant", variants]
+    env = dict(os.environ, PYTHONPATH=str(ARGS.src))
+    return subprocess.Popen(args, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def dist_card_roofline(tag, smi, cfg, shape, rt, measured_ms, lower,
+                       **kw) -> dict:
+    """The dry-run of a step the card ran, on a 1x1 mesh: its roofline
+    step bound (the largest of its terms) must not exceed the measured
+    time by more than DIST_BOUND_SLACK; prints the roofline share (the
+    ideal step, 6·N·D or 2·N·D at peak FLOP/s for train, the minimum bytes
+    at HBM rate for decode, over the measured step)."""
+    import dataclasses
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import roofline as rl
+    from repro_torch.runtime import sharding as sh
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"))
+    rt = dataclasses.replace(rt, shard_fn=sh.make_shard_fn(cfg, mesh, shape))
+    traced, _ = lower(cfg, shape, mesh, rt, False, **kw)
+    roof = rl.assemble(cfg.name, shape.name, 1, traced.cost, None,
+                       cfg.num_superlayers,
+                       rl.model_flops_estimate(cfg, shape),
+                       min_bytes=rl.min_bytes_estimate(cfg, shape),
+                       kind=shape.kind)
+    step_ms, ideal_ms = 1e3 * roof.step_s, 1e3 * roof.ideal_s
+    out = {"measured_ms": measured_ms, "bound_ms": step_ms,
+           "bound_by": roof.bottleneck, "ideal_ms": ideal_ms,
+           "bound_share": step_ms / measured_ms,
+           "roofline_share": ideal_ms / measured_ms,
+           "flops": traced.cost.flops, "bytes": traced.cost.bytes_accessed,
+           "kernels": traced.kernels, "memory": traced.memory,
+           "trace_s": traced.trace_s, "replicated_ops": traced.replicated_ops,
+           "replicated_folds": traced.replicated_folds}
+    print(f"[dist] {tag}: measured {measured_ms:.1f} ms/step; traced bound "
+          f"{step_ms:.2f} ms ({roof.bottleneck}: {traced.cost.flops:.4g} "
+          f"FLOP, {traced.cost.bytes_accessed:.4g} B), share "
+          f"{out['bound_share']:.3f}; ideal {ideal_ms:.2f} ms, roofline "
+          f"share {out['roofline_share']:.4f}; trace {traced.trace_s:.1f}s "
+          f"({smi})", flush=True)
+    if step_ms > DIST_BOUND_SLACK * measured_ms:
+        fail(f"{tag}: the roofline bound {step_ms:.2f} ms exceeds the "
+             f"measured {measured_ms:.2f} ms: an impossible reading")
+    if not 0 < ideal_ms <= step_ms:
+        fail(f"{tag}: ideal {ideal_ms} ms is not within the bound {step_ms}")
+    return out
+
+
+def dist_dots_step(smi, cfg, rt) -> dict:
+    """One [train] step's loss and gradients under ``remat="dots"`` and
+    ``"full"`` on the card, deterministic algorithms on: bit-equal, and
+    kernel A launched twice per linear (its launch sits inside the
+    registry's autograd Function, which the policy recomputes)."""
+    import dataclasses
+    import torch
+    from repro_torch.core import execution as ex
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.runtime import train_loop as tl
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg, gen, device="cuda")
+    data = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=SEED)
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch_at(0).items()}
+    policy = ex.parse_policy("bf16:dense:hopper")
+    got = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat in ("full", "dots"):
+            pcfg, prt = ex.apply_policy(
+                dataclasses.replace(cfg, remat=remat), rt, policy)
+            zero_launch_counts()
+            (loss, _), grads = tl.value_and_grad(tl.make_loss_fn(pcfg, prt))(
+                params, batch)
+            torch.cuda.synchronize()
+            got[remat] = (loss, tree.leaves(grads), launch_counts())
+            del grads
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (lf, gf, nf), (ld, gd, nd) = got["full"], got["dots"]
+    same = bool(torch.equal(lf, ld)) and len(gf) == len(gd) and all(
+        torch.equal(a, b) for a, b in zip(gf, gd))
+    want = train_launches_expected(cfg, "bf16:dense:hopper", 1)
+    print(f"[dist] remat=dots step: loss {float(ld):.6f}, loss and "
+          f"{len(gd)} gradient leaves bit-equal to remat=full: {same}; "
+          f"launches {nd} (full {nf}, expected {want}) ({smi})", flush=True)
+    if not same:
+        fail("remat=dots: loss or gradients differ from remat=full")
+    if nd != want or nf != want:
+        fail(f"remat=dots launches {nd}, full {nf}; the code implies {want}")
+    del params, gf, gd
+    torch.cuda.empty_cache()
+    return {"train bf16:dense:hopper remat=dots": {"launches": nd}}
+
+
+def dist_phase(smi, train_summary, serve_dense) -> dict:
+    """The dry-run CLIs on llama3-8b's production cells; [train]'s step and
+    [serve]'s decode step dry-run on a 1x1 mesh and held to their measured
+    times; one [train] step under ``remat="dots"``."""
+    import json as _json
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import execution as ex
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.layers import RuntimeCfg
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "dist"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for shape, tool, variants in DIST_CELLS:
+        path = out_dir / f"{tool}_{shape}.jsonl"
+        path.unlink(missing_ok=True)
+        procs.append((shape, tool, path, time.perf_counter(),
+                      dist_cli(shape, tool, variants, path)))
+    results = {}
+    try:
+        cfg = train_cfg()
+        arm = train_summary["bf16:dense:hopper"]
+        policy = ex.parse_policy("bf16:dense:hopper")
+        tr = dist_card_roofline(
+            "[train] step (llama3-8b, 8 layers, B=4 S=512, "
+            "bf16:dense:hopper)", smi, cfg,
+            ShapeConfig("train_card", TRAIN_S, TRAIN_B, "train"),
+            RuntimeCfg(policy=policy), arm["ms_per_step"], dr.lower_train,
+            opt_cfg=adamw.AdamWConfig(total_steps=1000, warmup_steps=20))
+        by = tr["memory"]["argument_by_input"]
+        state = sum(by[k] for k in ("params", "master", "mu", "nu"))
+        print(f"[dist] [train] state from the specs {state} B = "
+              f"{state / 2**30:.2f} GiB, allocated on the card "
+              f"{arm['state_bytes']} B; predicted peak "
+              f"{tr['memory']['per_device_total'] / 1e9:.2f} GB beside the "
+              f"measured {arm['peak_bytes'] / 1e9:.2f} GB ({smi})",
+              flush=True)
+        if state != arm["state_bytes"]:
+            fail(f"[dist] state bytes {state} from the specs, "
+                 f"{arm['state_bytes']} allocated by [train]")
+        serve_cfg = get_arch("llama3-8b")
+        de = dist_card_roofline(
+            f"[serve] decode step (llama3-8b, 32 layers, {SLOTS} slots, "
+            f"max_len {MAX_LEN}, bf16:dense:hopper)", smi, serve_cfg,
+            ShapeConfig("serve_card", MAX_LEN, SLOTS, "decode"),
+            RuntimeCfg(use_pallas=True, policy=policy),
+            serve_dense["decode_ms_per_step"], dr.lower_decode)
+        mesh_mod.destroy()
+        results.update(dist_dots_step(smi, cfg, RuntimeCfg()))
+        flops = {}
+        for shape, tool, path, t0, proc in procs:
+            text, _ = proc.communicate(timeout=600)
+            secs = time.perf_counter() - t0
+            (ROOT / "build" / "dist" / f"{tool}_{shape}.log").write_text(text)
+            tail = [ln for ln in text.splitlines()
+                    if not ln.startswith("[rank")][-6:]
+            print(f"[dist] {tool} llama3-8b {shape}: rc {proc.returncode} "
+                  f"in {secs:.1f}s; " + " | ".join(tail), flush=True)
+            if proc.returncode != 0:
+                fail(f"[dist] {tool} {shape} exited {proc.returncode}")
+            recs = [_json.loads(ln) for ln in path.read_text().splitlines()]
+            if not recs or not all(r["ok"] for r in recs):
+                fail(f"[dist] {tool} {shape}: a cell failed")
+            if tool == "dryrun" and "OK" not in text:
+                fail(f"[dist] dryrun {shape} printed no OK")
+            for r in recs:
+                flops[(shape, r.get("variant", "baseline"))] = \
+                    r["full"]["flops"]
+                # a fold gathered for want of a DTensor rule is the
+                # trace's artifact, not the plan's cost: no bound
+                if r["replicated_folds"]:
+                    fail(f"[dist] {tool} {shape} "
+                         f"{r.get('variant', 'cell')}: "
+                         f"{r['replicated_folds']} folds ran gathered "
+                         f"({r['replicated_ops']}): not a bound")
+                wire = {k: v["wire_bytes"]
+                        for k, v in r["full"]["collectives"].items()}
+                print(f"[dist] {tool} {shape} "
+                      f"{r.get('variant', 'cell')}: per-device wire bytes "
+                      f"by kind {_json.dumps(wire)}; roofline "
+                      f"{_json.dumps({k: r['roofline'][k] for k in ('compute_s', 'memory_s', 'collective_s', 'bottleneck', 'roofline_fraction')})}; "
+                      f"GiB/dev {r['memory']['per_device_total'] / 2**30:.2f};"
+                      f" trace {r['trace_s']:.1f}s; flops "
+                      f"{r['full']['flops']:.6g}; replicated "
+                      f"{r['replicated_ops']}", flush=True)
+        base, dots = (flops[("train_4k", v)]
+                      for v in ("baseline", "remat_dots"))
+        print(f"[dist] train_4k remat_dots {dots:.6g} FLOP/device, "
+              f"{base - dots:.6g} below the baseline's {base:.6g}",
+              flush=True)
+        if not dots < base:
+            fail("[dist] train_4k: remat_dots recomputes as much as the "
+                 "baseline")
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        mesh_mod.destroy()
+    summary = {"train": {k: v for k, v in tr.items() if k != "memory"},
+               "train_memory": tr["memory"],
+               "decode": {k: v for k, v in de.items() if k != "memory"},
+               "nvidia_smi": smi}
+    print(f"[dist-summary] {_json.dumps(summary)}", flush=True)
+    print(f"[dist] phase {time.perf_counter() - t_phase:.1f}s ({smi})",
+          flush=True)
+    return results
 
 
 def is_port_gemm(kernel_name: str) -> bool:
@@ -4329,8 +4585,9 @@ def main() -> int:
     serve.update(local_phase())
     serve.update(ssm_phase())
     serve.update(hybrid_phase())
-    train, train_rows, train_drow = train_phase()
+    train, train_rows, train_drow, train_summary = train_phase()
     serve.update(train)
+    serve.update(dist_phase(smi, train_summary, serve["bf16:dense:hopper"]))
     # [profile]'s kernel A launches (occupancy, latency, timer check and
     # A/A block sweep under hopper) join A's entry of the kernels line
     serve["profile"] = {"launches": dict.fromkeys(launch_counts(), 0)}

@@ -161,3 +161,43 @@ def refuse_grad(what: str, *tensors) -> None:
             f"{what} has no backward: autograd through a kernel entry point "
             "is refused (differentiate through the registry's entries, "
             "which run the kernel forward and the torch reference backward)")
+
+
+# The dry-run's cost recorder (``launch/dryrun.py``), called as
+# ``COST_SINK(kernel, operations, bytes)`` by :func:`meta_result`;
+# set only while the dry-run traces a step.
+COST_SINK = None
+
+
+def costing(*tensors) -> bool:
+    """Whether a kernel call is the dry-run's: its operands on ``meta``
+    while the dry-run traces (:data:`COST_SINK` set). Outside a trace a
+    ``meta`` operand is refused as any other non-CUDA tensor."""
+    return COST_SINK is not None and all(t.is_meta for t in tensors)
+
+
+def meta_result(kernel: str, shape, dtype, ops: float, nbytes: float,
+                like: torch.Tensor) -> torch.Tensor:
+    """A kernel's answer to ``meta`` operands while the dry-run traces
+    (:func:`costing`, ``launch/dryrun.py``): nothing runs and nothing
+    launches; the call is costed as the kernel (its operations and bytes,
+    counted as ``chip_smoke.bound_ms`` counts them) and answered with an
+    empty output of the kernel's shape and dtype. A card's tensors never
+    reach here.
+    The kernels take whole tensors, so a DTensor operand must live on a
+    one-device mesh (a sharded product would need ``local_map`` with the
+    matmul's placements)."""
+    out = torch.empty(tuple(shape), dtype=dtype, device="meta")
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(like, DTensor):
+        mesh = like.device_mesh
+        if mesh.size() > 1:
+            raise NotImplementedError(
+                f"{kernel} on a mesh of {mesh.size()} devices: the port's "
+                "kernels take whole tensors, so a kernel backend is costed "
+                "on a one-device mesh only")
+        out = DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    if COST_SINK is not None:
+        COST_SINK(kernel, ops, nbytes)
+    return out

@@ -15,7 +15,9 @@ ring and accumulators are twice as large) and folded in a fixed order:
 :func:`describe_grid` gives its launch shape.
 
 ``flash_attention`` launches the kernel for CUDA tensors and raises on what
-it does not take; for CPU tensors it computes :func:`flash_attention_plain`.
+it does not take; for CPU tensors it computes :func:`flash_attention_plain`;
+inside the dry-run's trace ``meta`` tensors are costed and answered empty
+(``_build.meta_result``), and raise elsewhere.
 It is forward only, as the reference's kernel is: under grad mode an
 operand that requires grad is refused on either device.
 """
@@ -86,6 +88,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     devs = {q.device.type, k.device.type, v.device.type}
     if devs == {"cpu"}:
         return flash_attention_plain(q, k, v, causal=causal)
+    if _build.costing(q, k, v):
+        _check_shapes(q, k, v, causal)
+        B, h, sq, hd = q.shape
+        kvh, skv = k.shape[1], k.shape[2]
+        pairs = sq * (sq + 1) / 2 if causal else sq * skv
+        return _build.meta_result(
+            "flash_attention", q.shape, q.dtype, 4.0 * hd * B * h * pairs,
+            2 * (B * h * sq + B * kvh * skv) * hd * q.dtype.itemsize, q)
     if devs != {"cuda"} or not (q.device == k.device == v.device):
         raise ValueError("the flash-attention kernel needs q, k and v on one "
                          "CUDA device")

@@ -8,7 +8,9 @@ itself, so unlike the TPU kernel it takes every shape.
 ``fp8_matmul`` launches the kernel for CUDA tensors, with the tile and K
 splits of :func:`gemm_plan.launch_plan`, and raises on what it does not
 take; for CPU tensors it computes :func:`fp8_matmul_plain`, the kernel's
-plain PyTorch twin (f32 operands, f32 accumulation). On either device it
+plain PyTorch twin (f32 operands, f32 accumulation); inside the dry-run's
+trace ``meta`` tensors are costed and answered empty
+(``_build.meta_result``), and raise elsewhere. On either device it
 refuses an operand that requires grad under grad mode
 (:func:`_build.refuse_grad`).
 
@@ -86,6 +88,12 @@ def fp8_matmul(x: torch.Tensor, w: torch.Tensor,
     _build.refuse_grad("fp8_matmul", x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return fp8_matmul_plain(x, w, out_dtype)
+    if _build.costing(x, w):
+        (M, K), N = x.shape, w.shape[1]
+        return _build.meta_result(
+            "gemm", (M, N), out_dtype, 2.0 * M * N * K,
+            (M * K + K * N) * x.dtype.itemsize + M * N * out_dtype.itemsize,
+            x)
     _check_operands(x, w, out_dtype, 2, "(M, K) x (K, N)")
     (M, K), N = x.shape, w.shape[1]
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
@@ -113,6 +121,12 @@ def fp8_matmul_batched(x: torch.Tensor, w: torch.Tensor,
     _build.refuse_grad("fp8_matmul_batched", x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return fp8_matmul_batched_plain(x, w, out_dtype)
+    if _build.costing(x, w):
+        (E, M, K), N = x.shape, w.shape[2]
+        return _build.meta_result(
+            "gemm", (E, M, N), out_dtype, 2.0 * E * M * N * K,
+            E * ((M * K + K * N) * x.dtype.itemsize
+                 + M * N * out_dtype.itemsize), x)
     _check_operands(x, w, out_dtype, 3, "(E, M, K) x (E, K, N)")
     (E, M, K), N = x.shape, w.shape[2]
     out = torch.empty((E, M, N), dtype=out_dtype, device=x.device)

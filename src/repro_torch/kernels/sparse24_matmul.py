@@ -72,6 +72,12 @@ def sparse24_matmul(x: torch.Tensor, values: torch.Tensor, meta: torch.Tensor,
     _build.refuse_grad("sparse24_matmul", x, values, meta)
     if all(t.device.type == "cpu" for t in (x, values, meta)):
         return sparse24_matmul_plain(x, values, meta, out_dtype)
+    if _build.costing(x, values, meta):
+        (M, K), N = x.shape, values.shape[1]
+        return _build.meta_result(
+            "sparse24_gemm", (M, N), out_dtype, 2.0 * M * N * (K // 2),
+            M * K * x.dtype.itemsize + (K // 2) * N * values.dtype.itemsize
+            + (K // 8) * N + M * N * out_dtype.itemsize, x)
     _on_one_cuda_device(x, values, meta)
     if x.dim() != 2 or values.dim() != 2 or meta.dim() != 2:
         raise ValueError(f"want x (M, K), values (K/2, N), meta (K/8, N); got "

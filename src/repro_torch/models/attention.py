@@ -18,7 +18,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import DEFAULT_RT, RuntimeCfg, apply_rope, dense
+from repro_torch.models.layers import (
+    DEFAULT_RT, RuntimeCfg, apply_rope, dense, shard_tag)
 
 NEG_INF = -1e30
 
@@ -144,6 +145,7 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
     v = dense(x, p["w_v"], cfg, rt, "v").reshape(b, s, kv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_tag(rt, q, "attn_q")
     if rt.use_pallas and not window:
         from repro_torch.kernels import ops
         o = ops.flash_attention(q, k, v, causal=True)

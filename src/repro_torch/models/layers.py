@@ -40,7 +40,10 @@ class RuntimeCfg:
     either package: weights take ``init_params``' ``dtype`` (bf16 by
     default) whatever it says. The reference's ``opt_barrier`` (an XLA
     scheduling hint between attention blocks) has no counterpart: PyTorch
-    runs the blocks in program order."""
+    runs the blocks in program order. ``shard_fn(tag, x)``, when set,
+    places the activation ``x`` by its tag (``runtime/sharding.py``
+    redistributes a DTensor; a plain tensor passes through); ``None``
+    leaves every activation as it is."""
     chunk_q: int = 1024
     chunk_kv: int = 1024
     use_pallas: bool = False
@@ -52,6 +55,14 @@ class RuntimeCfg:
     remat_blocks: bool = True
     # Explicit execution policy; wins over cfg.precision / use_pallas.
     policy: Any = None
+    shard_fn: Any = None
+
+
+def shard_tag(rt: RuntimeCfg, x, tag: str):
+    """``rt.shard_fn(tag, x)``, or ``x`` itself when there is none."""
+    if rt.shard_fn is None:
+        return x
+    return rt.shard_fn(tag, x)
 
 
 DEFAULT_RT = RuntimeCfg()
@@ -92,13 +103,15 @@ def batched_einsum(expr: str, a: torch.Tensor, b: torch.Tensor,
                    rt: RuntimeCfg, out_dtype=None) -> torch.Tensor:
     """Batched matmul with f32 accumulation, then ``out_dtype`` (default
     ``rt.act_dtype``). With ``rt.f32_batched_dots`` the operands are upcast
-    to f32 first, as in the reference; without it they stay in their own
-    type (bf16 products on the card sum in f32 inside the library's kernel,
-    whose result is in the operands' type before ``out_dtype``)."""
+    to f32 first, as in the reference; without it they meet in their
+    promoted type, as ``jnp.einsum``'s operands do (bf16 products on the
+    card sum in f32 inside the library's kernel, whose result is in that
+    type before ``out_dtype``)."""
     out_dtype = out_dtype or rt.act_dtype
     if rt.f32_batched_dots:
         return torch.einsum(expr, a.float(), b.float()).to(out_dtype)
-    return torch.einsum(expr, a, b).to(out_dtype)
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(expr, a.to(dt), b.to(dt)).to(out_dtype)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -169,6 +182,9 @@ def init_weight(shape, dtype, generator=None, device=None,
     """normal × fan_in^-0.5 (or ``scale``), drawn in f32 then cast. As in
     the reference, fan_in is ``shape[0]``: an expert stack (E, d, f) is
     scaled by E^-0.5."""
+    if device is not None and torch.device(device).type == "meta":
+        # a shape-only tree (``transformer.params_shape``): draw nothing
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) > 1 else shape[-1]
     s = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(shape, generator=generator, device=device,

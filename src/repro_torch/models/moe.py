@@ -24,7 +24,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import execution as ex
 from repro_torch.models.layers import (
     DEFAULT_RT, RuntimeCfg, batched_einsum, init_mlp, init_weight,
-    swiglu_mlp)
+    shard_tag, swiglu_mlp)
 
 
 def capacity(cfg: ArchConfig, group_size: int) -> int:
@@ -125,7 +125,9 @@ def moe_mlp(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
     assert T % gs == 0, (T, gs)
     G = T // gs
     cap = capacity(cfg, gs)
-    xt = x.reshape(G, gs, d)
+    # token groups shard over every mesh axis; the dispatched experts
+    # reshard to the expert layout (``runtime/sharding.make_shard_fn``)
+    xt = shard_tag(rt, x.reshape(G, gs, d), "moe_tokens")
     logits = torch.einsum("gsd,de->gse", xt.float(), p["router"].float())
     if rt.moe_gather_dispatch:
         token_idx, weight, aux = gather_dispatch(logits, cfg, cap)
@@ -135,6 +137,7 @@ def moe_mlp(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
     else:
         combine, dispatch, aux = router_dispatch(logits, cfg, cap)
         xin = batched_einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xt, rt)
+    xin = shard_tag(rt, xin, "moe_dispatch")
 
     pol = ex.policy_from(cfg, rt)
     gate = _edot(xin, p["w_gate"], pol, rt)

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import DEFAULT_RT, RuntimeCfg, dense, init_weight
+from repro_torch.models.layers import (
+    DEFAULT_RT, RuntimeCfg, dense, init_weight, shard_tag)
 
 
 def _token_shift(x: torch.Tensor,
@@ -110,6 +111,7 @@ def rwkv6_block_with_state(x: torch.Tensor, p: Dict[str, torch.Tensor],
     hd = cfg.ssm_head_dim
     nh = d // hd
     r, k, v, g, w = _time_mix_inputs(x, _token_shift(x), p, cfg, rt)
+    v = shard_tag(rt, v, "rwkv_v")          # value-dim sharding
     u = p["u"].reshape(nh, hd).float()
 
     Lc = min(rt.ssm_chunk, cfg.ssm_chunk, s)

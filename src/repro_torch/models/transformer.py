@@ -2,12 +2,15 @@
 
 Twin of ``repro/models/transformer.py``: the training forward
 (``forward``, ``forward_hidden``: no caches, super-layers checkpointed
-under ``cfg.remat == "full"``), and for serving ``init_params``,
+under ``cfg.remat``, :func:`_remat`), and for serving ``init_params``,
 ``prefill``, ``decode_step`` (with ``_decode_attn``) and
 ``init_cache``, the paged twins ``paged_decode_step`` (with
 ``_paged_decode_attn``) and ``init_paged_cache``, and the speculative
 verify ``multi_decode_step`` / ``paged_multi_decode_step`` with the
-rollback of rejected writes (``_rollback_caches``). Where the reference
+rollback of rejected writes (``_rollback_caches``). ``params_shape`` and
+``cache_shape`` give the trees on the ``meta`` device, and the
+``superlayer_*`` functions run one super-layer alone (the dry-run's
+per-layer probes, ``launch/dryrun.py``). Where the reference
 scans over super-layers whose parameters are stacked on a leading axis,
 the port keeps a Python list with one dict per layer and loops over it
 (PyTorch runs eagerly; there is no trace to keep small). Layer ``i`` has
@@ -41,20 +44,23 @@ replaces is left as it was, so keeping a reference to it is a snapshot.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import execution as ex
+from repro_torch.core import tree
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.layers import (
     DEFAULT_RT, RuntimeCfg, dense, embed_tokens, init_attn, init_mlp,
-    init_weight, lm_logits, rms_norm, swiglu_mlp)
+    init_weight, lm_logits, rms_norm, shard_tag, swiglu_mlp)
 
 Params = Dict[str, Any]
 Caches = List[Dict[str, torch.Tensor]]
@@ -137,6 +143,12 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+def params_shape(cfg: ArchConfig, dtype=torch.bfloat16) -> Params:
+    """:func:`init_params`' tree on the ``meta`` device: every leaf's
+    shape and dtype, no storage, nothing drawn from any generator."""
+    return init_params(cfg, None, device="meta", dtype=dtype)
+
+
 def block_params(kind: str, p: Params, params: Params) -> Params:
     """A layer's parameters: its own dict, or for a ``shared_attn`` layer
     the one shared block's."""
@@ -169,8 +181,9 @@ def _kv_to_cache(k: torch.Tensor, v: torch.Tensor,
         return {"k": k, "v": v, "pos": pos.expand(b, s)}
     p = torch.arange(s - window, s, dtype=torch.int32, device=dev)
     rows = (p % window).long()
-    kc = torch.zeros((b, window) + k.shape[2:], dtype=k.dtype, device=dev)
-    vc = torch.zeros((b, window) + v.shape[2:], dtype=v.dtype, device=dev)
+    # new_zeros: on a DTensor the window is one too (the dry-run)
+    kc = k.new_zeros((b, window) + k.shape[2:])
+    vc = v.new_zeros((b, window) + v.shape[2:])
     kc[:, rows] = k[:, s - window:]
     vc[:, rows] = v[:, s - window:]
     posc = torch.zeros((window,), dtype=torch.int32, device=dev)
@@ -201,12 +214,20 @@ def prefill_block(kind: str, x: torch.Tensor, p: Params, cfg: ArchConfig,
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
             rt: RuntimeCfg = DEFAULT_RT):
-    """tokens (B, S) → (last-token logits (B, Vp) f32, per-layer caches).
-    A recurrent stack's prompt must fit one scan chunk or be a multiple of
-    it (``min(rt.ssm_chunk, cfg.ssm_chunk)``), as in the reference."""
-    x = embed_tokens(tokens, params["embed"]).to(rt.act_dtype)
+    """tokens (B, S), or embeddings (B, S, d) → (last-token logits (B, Vp)
+    f32, per-layer caches); each super-layer's input placed by the
+    ``act_btd`` tag. A recurrent stack's prompt must fit one scan chunk or
+    be a multiple of it (``min(rt.ssm_chunk, cfg.ssm_chunk)``), as in the
+    reference."""
+    x = embed_tokens(tokens, params["embed"]) if tokens.dim() == 2 \
+        else tokens
+    x = x.to(rt.act_dtype)
     caches: Caches = []
-    for kind, p in zip(layer_kinds(cfg), params["layers"]):
+    n_pat = len(cfg.superlayer_pattern)
+    n_stack = cfg.num_superlayers * n_pat
+    for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
+        if i < n_stack and i % n_pat == 0:
+            x = shard_tag(rt, x, "act_btd")
         x, cache = prefill_block(kind, x, block_params(kind, p, params),
                                  cfg, rt)
         caches.append(cache)
@@ -241,41 +262,72 @@ def train_block(kind: str, x: torch.Tensor, p: Params, cfg: ArchConfig,
     return x + swiglu_mlp(h, p["mlp"], cfg, rt), aux
 
 
+# The 2-D products that ``remat="dots"`` keeps: the ``torch`` backend's
+# linears (``torch.matmul`` of an f32 (.., K) by a (K, N) folds to mm).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(body, cfg: ArchConfig):
+    """``body`` under ``cfg.remat`` while a gradient flows.
+
+    * ``"full"``: checkpointed; backward runs its forward again (so each
+      kernel in it launches twice per step) instead of keeping its
+      activations (the reference's ``nothing_saveable``).
+    * ``"dots"``: checkpointed keeping the outputs of ``aten.mm`` and
+      ``aten.addmm``, the linears' 2-D products, and recomputing the rest
+      (the reference's ``dots_with_no_batch_dims_saveable``: batched
+      products, attention's and the MoE's, are recomputed). Under a kernel
+      backend the GEMM launch sits inside ``_FwdWithRefGrad``
+      (``kernels/registry.py``), which the dispatcher never sees as a
+      product, so it is recomputed: kernel A still launches twice per
+      linear, as a ``pallas_call`` is no dot to the reference's policy.
+    * ``"none"``: ``body`` itself, every activation kept.
+
+    The forward draws no random numbers: no RNG state is kept."""
+    if not torch.is_grad_enabled() or cfg.remat not in ("full", "dots"):
+        return body
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, body, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
+
+
+def _superlayer_body(kinds: List[str], ps: List[Params], cfg: ArchConfig,
+                     rt: RuntimeCfg):
+    """One super-layer's training forward: h -> (h, the sum of its blocks'
+    aux losses)."""
+    def body(h):
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for kind, p in zip(kinds, ps):
+            h, a = train_block(kind, h, p, cfg, rt)
+            total = total + a
+        return h, total
+    return body
+
+
 def _run_stack(params: Params, x: torch.Tensor, cfg: ArchConfig,
                rt: RuntimeCfg):
     """The reference's ``_run_stack`` without caches: the super-layers in
-    turn, their aux losses summed (each super-layer's own sum added to the
-    carry, as its scan does), then the hybrid tail. ``cfg.remat == "full"``
-    checkpoints each super-layer while a gradient flows: backward runs its
-    forward again (so each kernel in it launches twice per step) instead of
-    keeping its activations. ``"dots"`` (save the dot outputs) is used
-    only by the reference's ``launch/perf.py`` and waits for that port."""
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' comes with the port of launch/perf.py "
-            "(ROADMAP item 14)")
+    turn, each under :func:`_remat` and its input placed by the
+    ``act_btd`` tag, their aux losses summed (each super-layer's own sum
+    added to the carry, as its scan does), then the hybrid tail."""
     kinds = layer_kinds(cfg)
     n_pat = len(cfg.superlayer_pattern)
     n_stack = cfg.num_superlayers * n_pat
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, n_stack, n_pat):
         ps = [block_params(kinds[i], params["layers"][i], params)
               for i in range(lo, lo + n_pat)]
-
-        def body(h, ks=kinds[lo:lo + n_pat], ps=ps):
-            total = torch.zeros((), dtype=torch.float32, device=h.device)
-            for kind, p in zip(ks, ps):
-                h, a = train_block(kind, h, p, cfg, rt)
-                total = total + a
-            return h, total
-
-        if remat:
-            # the forward draws no random numbers: no RNG state to keep
-            x, a = checkpoint(body, x, use_reentrant=False,
-                              preserve_rng_state=False)
-        else:
-            x, a = body(x)
+        x = shard_tag(rt, x, "act_btd")
+        x, a = _remat(_superlayer_body(kinds[lo:lo + n_pat], ps, cfg, rt),
+                      cfg)(x)
         aux = aux + a
     for i in range(n_stack, len(kinds)):
         x, _ = train_block(kinds[i], x, params["layers"][i], cfg, rt)
@@ -354,7 +406,9 @@ def _decode_qkv(x, p, posb: torch.Tensor, cfg: ArchConfig, rt: RuntimeCfg):
     v = dense(x, p["w_v"], cfg, rt, "v").reshape(b, 1, kvh, hd)
     q = attn_mod.apply_rope(q, posb[:, None], cfg.rope_theta)
     k = attn_mod.apply_rope(k, posb[:, None], cfg.rope_theta)
-    return q, k, v
+    # q is one row per slot: its own placement lets a seq-sharded cache be
+    # contracted where it lies (``runtime/sharding.make_shard_fn``)
+    return shard_tag(rt, q, "decode_q"), k, v
 
 
 def _decode_attend(q, kc, vc, posc, posb: torch.Tensor, cfg: ArchConfig,
@@ -513,10 +567,33 @@ def _positions(pos, b: int, device) -> torch.Tensor:
     return posb.expand(b) if posb.dim() == 0 else posb
 
 
+def _decode_block(kind: str, x: torch.Tensor, p: Params, cache, attn,
+                  cfg: ArchConfig, rt: RuntimeCfg) -> torch.Tensor:
+    """One layer of a decode step (``attn`` from :func:`_dense_attn`); its
+    cache is written in place, a state leaf replaced in the dict."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind == "mamba2":
+        o, (cache["h"], cache["conv"]) = m2.mamba2_decode(
+            h, p["mamba"], cfg, (cache["h"], cache["conv"]), rt)
+        return x + o
+    if kind == "rwkv6":
+        o, (cache["S"], cache["prev_tm"]) = rk.rwkv6_decode(
+            h, p["rwkv"], cfg, (cache["S"], cache["prev_tm"]), rt)
+        x = x + o
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        o, cache["prev_cm"] = rk.rwkv6_channel_mix_decode(
+            h, p["rwkv"], cfg, cache["prev_cm"], rt)
+        return x + o
+    x = x + attn(kind, h, p["attn"], cache)
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + ffn(kind, h, p, cfg, rt)
+
+
 def _decode(params: Params, tokens: torch.Tensor, caches: Caches, pos,
             cfg: ArchConfig, rt: RuntimeCfg, page_map=None):
     """The decode stack, each layer's attention from :func:`_dense_attn`
-    (and, with ``page_map``, the paged attention of the pooled layers)."""
+    (and, with ``page_map``, the paged attention of the pooled layers);
+    each super-layer's input placed by the ``act_btd`` tag."""
     posb = _positions(pos, tokens.shape[0], tokens.device)
     paged = None
     if page_map is not None:
@@ -524,26 +601,14 @@ def _decode(params: Params, tokens: torch.Tensor, caches: Caches, pos,
             h, p, cache, posb, page_map, cfg, rt)
     attn = _dense_attn(caches, posb, cfg, rt, paged)
     x = embed_tokens(tokens, params["embed"]).to(rt.act_dtype)
-    for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
-        p = block_params(kind, p, params)
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        if kind == "mamba2":
-            o, (cache["h"], cache["conv"]) = m2.mamba2_decode(
-                h, p["mamba"], cfg, (cache["h"], cache["conv"]), rt)
-            x = x + o
-            continue
-        if kind == "rwkv6":
-            o, (cache["S"], cache["prev_tm"]) = rk.rwkv6_decode(
-                h, p["rwkv"], cfg, (cache["S"], cache["prev_tm"]), rt)
-            x = x + o
-            h = rms_norm(x, p["norm2"], cfg.norm_eps)
-            o, cache["prev_cm"] = rk.rwkv6_channel_mix_decode(
-                h, p["rwkv"], cfg, cache["prev_cm"], rt)
-            x = x + o
-            continue
-        x = x + attn(kind, h, p["attn"], cache)
-        h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + ffn(kind, h, p, cfg, rt)
+    n_pat = len(cfg.superlayer_pattern)
+    n_stack = cfg.num_superlayers * n_pat
+    for i, (kind, p, cache) in enumerate(zip(layer_kinds(cfg),
+                                             params["layers"], caches)):
+        if i < n_stack and i % n_pat == 0:
+            x = shard_tag(rt, x, "act_btd")
+        x = _decode_block(kind, x, block_params(kind, p, params), cache,
+                          attn, cfg, rt)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(x[:, 0], params["head"], cfg.vocab_size,
                        policy=ex.policy_from(cfg, rt))
@@ -828,6 +893,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             for kind in layer_kinds(cfg)]
 
 
+def cache_shape(cfg: ArchConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16) -> Caches:
+    """:func:`init_cache`'s tree on the ``meta`` device (shapes and
+    dtypes, no storage)."""
+    return init_cache(cfg, batch, max_len, dtype, device="meta")
+
+
 def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
                      page_size: int, pages: int, dtype=torch.bfloat16,
                      device=None) -> Caches:
@@ -847,3 +919,69 @@ def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
             if kind in PAGED_KINDS
             else _block_cache(kind, batch, max_len, cfg, dtype, device)
             for kind in layer_kinds(cfg)]
+
+
+# ---------------------------------------------------------------------------
+# One super-layer alone: the per-layer probes of ``launch/dryrun.py``
+# ---------------------------------------------------------------------------
+
+def superlayer_params_slice(params: Params, cfg: ArchConfig) -> List[Params]:
+    """The first super-layer's layer dicts (a ``shared_attn`` layer's is
+    empty: its block is ``params["shared_attn"]``). Works on a
+    :func:`params_shape` tree too."""
+    return params["layers"][:len(cfg.superlayer_pattern)]
+
+
+def superlayer_cache_slice(caches: Caches, cfg: ArchConfig) -> Caches:
+    """The first super-layer's layer caches."""
+    return caches[:len(cfg.superlayer_pattern)]
+
+
+def _pick(kind: str, p: Params, shared: Optional[Params]) -> Params:
+    return shared if kind == "shared_attn" else p
+
+
+def superlayer_forward(x: torch.Tensor, p_super: List[Params],
+                       shared: Optional[Params], cfg: ArchConfig,
+                       rt: RuntimeCfg):
+    """One super-layer's training forward under ``cfg.remat``, its input
+    placed by the ``act_btd`` tag as in the stack: x -> (x', aux)."""
+    kinds = list(cfg.superlayer_pattern)
+    x = shard_tag(rt, x, "act_btd")
+    ps = [_pick(k, p, shared) for k, p in zip(kinds, p_super)]
+    return _remat(_superlayer_body(kinds, ps, cfg, rt), cfg)(x)
+
+
+def superlayer_train_cost(x: torch.Tensor, ct: torch.Tensor,
+                          p_super: List[Params], shared: Optional[Params],
+                          cfg: ArchConfig, rt: RuntimeCfg):
+    """Forward and backward of one super-layer (the per-layer train-cost
+    probe): the gradients of ``sum(y * ct) + aux`` with respect to (x,
+    p_super) and, when there is one, the shared block, as trees of their
+    structure."""
+    trees = [x, p_super] + ([shared] if shared is not None else [])
+    flat = tree.leaves(trees)
+    diff = [t.detach().requires_grad_(True) for t in flat]
+    it = iter(diff)
+    xs, ps, *sh = tree.map_tree(lambda _: next(it), trees)
+    with torch.enable_grad():
+        y, aux = superlayer_forward(xs, ps, sh[0] if sh else None, cfg, rt)
+        loss = torch.sum(y.float() * ct.float()) + aux
+        grads = torch.autograd.grad(loss, diff, allow_unused=True)
+    grads = iter([torch.zeros_like(t) if g is None else g
+                  for t, g in zip(flat, grads)])
+    return tuple(tree.map_tree(lambda _: next(grads), trees))
+
+
+def superlayer_decode(x: torch.Tensor, p_super: List[Params],
+                      cache_super: Caches, pos, shared: Optional[Params],
+                      cfg: ArchConfig, rt: RuntimeCfg):
+    """One super-layer of a dense-cache decode step at ``pos``: (x, its
+    caches) -> (x', the caches, written in place)."""
+    kinds = list(cfg.superlayer_pattern)
+    posb = _positions(pos, x.shape[0], x.device)
+    attn = _dense_attn(cache_super, posb, cfg, rt)
+    for kind, p, cache in zip(kinds, p_super, cache_super):
+        x = _decode_block(kind, x, _pick(kind, p, shared), cache, attn,
+                          cfg, rt)
+    return x, cache_super

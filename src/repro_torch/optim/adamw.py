@@ -64,6 +64,12 @@ def init(params: Any, cfg: AdamWConfig) -> AdamWState:
             lambda p: p.detach().to(torch.float32, copy=True), params))
 
 
+def state_shape(params_shape: Any, cfg: AdamWConfig) -> AdamWState:
+    """:func:`init`'s state for a ``meta`` params tree
+    (``transformer.params_shape``): shapes and dtypes, no storage."""
+    return init(params_shape, cfg)
+
+
 def global_norm(grads: Any) -> torch.Tensor:
     total = None
     for g in tree.leaves(grads):

@@ -105,6 +105,13 @@ def init_state(params, opt_cfg: adamw.AdamWConfig,
                       grad_error=err)
 
 
+def state_shape(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
+                params_shape_tree, grad_compress: str = "none") -> TrainState:
+    """:func:`init_state` for a ``meta`` params tree
+    (``transformer.params_shape``): shapes and dtypes, no storage."""
+    return init_state(params_shape_tree, opt_cfg, grad_compress)
+
+
 def value_and_grad(loss_fn):
     """``jax.value_and_grad(loss_fn, has_aux=True)`` for a tree of params:
     ((loss, metrics), grads), the grads in the params' dtypes; a leaf the
