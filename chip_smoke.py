@@ -118,6 +118,26 @@ periodic checkpoint (a supervised restart) bit for bit under
 deterministic algorithms; and the
 refusal of autograd through every kernel entry point on the card.
 
+Then ``[train-blocks]``: the other block kinds through the same training
+path at full width, B=4, S=512, three steps under ``bf16:dense:hopper``
+(one step profiled) and ``bf16:dense:torch`` from copies of one init:
+granite-moe-3b-a800m with 8 of its 32 layers (every expert GEMM one
+launch of kernel A over the 40 experts, its backward the per-expert
+torch reference; the router, capacity dispatch and aux loss under
+autograd), zamba2-1.2b whole (38 mamba2 layers, six calls of the shared
+block, the hybrid tail outside the checkpoints) and rwkv6-3b with 8 of
+its 32 layers. Each arm's launches exactly as the code implies (kernel
+A's expert-batched ones too); losses (granite's aux loss too) and the
+step-0 grad norms of every leaf but a MoE layer's router and experts
+within ``[train]``'s tolerances, a recurrent stack that misses them held
+instead to an f32 run (hopper no farther from it than 1.5 times torch;
+where its gradients miss that too, printed beside how far one bf16 ulp
+on the input moves the torch arm's own); every sublayer's forward and
+backward under both backends on one input and one cotangent, teacher
+forced, within LAYER_TOL (so granite's router and experts are held on
+one routing); and ``hopper_experts`` forward and backward at the
+training shapes against the torch backend's per-expert path.
+
 Then ``[dist]``: the distributed dry-run (``launch/{dryrun,perf}.py``,
 meta tensors over a fake process group, nothing computed) run as a user
 runs it on llama3-8b's ``train_4k`` and ``decode_32k`` cells, the
@@ -138,7 +158,8 @@ and E, the grid of B, the splits of C's page walk. B and C are timed
 beside SDPA, whose CUDA-event means are kept as a second column.
 ``--kernels-only [--src DIR/src]`` runs just that, on this checkout or
 another, so that two commits' kernels can be timed by the same code in
-one call.
+one call; ``--train-blocks-only`` builds and runs ``[train-blocks]``
+alone.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -290,26 +311,53 @@ def plan_note(M, N, K, kind, batch: int = 1) -> str:
                                  *extra)[0].describe()
 
 
-# Pauses (s) before each new attempt at a trace that lost kernel records.
-# On the H100 torch.profiler now and then records none of a session's
-# kernels, or fewer than ran; in some whole runs it records none in most
-# sessions from the [train] phase on (PERF.md §7).
-PROFILE_WAITS_S = (0.25, 1.0, 4.0)
+# Pauses (s) before each new attempt at a trace that lost kernel records,
+# in every phase. On the H100 torch.profiler now and then records none of
+# a session's kernels, or fewer than ran; in some whole runs it records
+# none in most sessions from the [train] phase on (PERF.md §7). A retry
+# often recovers a trace of a few dozen calls, rarely one of a train step
+# (12k-30k kernels), so none is made once the attempts so far took
+# PROFILE_RETRY_S; a trace still lost falls back to CUDA events, or is
+# reported "not measured".
+PROFILE_WAITS_S = (0.25, 1.0)
+PROFILE_RETRY_S = 5.0
+
+
+class Kernel:
+    """One device record of a trace: name, start and end (µs), stream."""
+    __slots__ = ("name", "start", "end", "stream")
+
+    def __init__(self, name, start, end, stream):
+        self.name, self.start, self.end, self.stream = name, start, end, \
+            stream
+
+
+def kernel_records(prof) -> list:
+    """The device records of a torch.profiler trace, read from its raw
+    Kineto events. ``prof.events()`` would also build the tree of every
+    host op, which takes seconds for a train step's trace."""
+    return [Kernel(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3,
+                   e.device_resource_id())
+            for e in prof.profiler.kineto_results.events()
+            if str(e.device_type()).endswith("CUDA")]
 
 
 def traced(run, complete, what: str):
     """``(prof, kernels)``: a torch.profiler trace of ``run()`` (which ends
-    in a device synchronise) and its kernel records, taken again after a
-    pause (PROFILE_WAITS_S) while ``complete(kernels)`` is false. None when
-    every attempt lost records."""
+    in a device synchronise) and its ``kernel_records``, taken again after
+    each pause of PROFILE_WAITS_S while ``complete(kernels)`` is false and
+    the attempts so far took less than PROFILE_RETRY_S. None when every
+    attempt lost records."""
     from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
     for wait in (0.0,) + PROFILE_WAITS_S:
+        if wait and time.perf_counter() - t0 >= PROFILE_RETRY_S:
+            break
         time.sleep(wait)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
-        kernels = [e for e in prof.events()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        kernels = kernel_records(prof)
         if complete(kernels):
             return prof, kernels
         print(f"[smoke] the profile of {what} lost kernel records "
@@ -341,7 +389,7 @@ def device_ms(fn, iters: int = 50):
     got = traced(run, complete, f"{iters} calls")
     if got is None:
         return None
-    return sum(e.time_range.end - e.time_range.start for e in got[1]) \
+    return sum(e.end - e.start for e in got[1]) \
         / 1e3 / iters
 
 
@@ -1218,8 +1266,8 @@ def profiled_time_fn(fn, a, b, iters: int):
                 print("[profile] no sleep kernel among "
                       f"{sorted({e.name for e in kernels})}", flush=True)
             return []
-        t = max(e.time_range.start for e in sleeps)
-        return [e for e in kernels if e.time_range.start > t
+        t = max(e.start for e in sleeps)
+        return [e for e in kernels if e.start > t
                 and "spin_kernel" not in e.name]
 
     def complete(kernels):
@@ -1229,8 +1277,7 @@ def profiled_time_fn(fn, a, b, iters: int):
     traced_ = traced(run, complete, f"_time_fn over {iters} calls")
     if traced_ is None:
         return 1e3 * got["s"], None
-    prof_us = sum(e.time_range.end - e.time_range.start
-                  for e in after_sleep(traced_[1]))
+    prof_us = sum(e.end - e.start for e in after_sleep(traced_[1]))
     return 1e3 * got["s"], prof_us / 1e3 / iters
 
 
@@ -3005,9 +3052,9 @@ def prefill_against_f32(tag, cfg, params, p32, prompt, precision,
     return {"prefill_against_f32": out}
 
 
-def diagnose_recurrent() -> int:
-    """``--diagnose-recurrent``: why the recurrent stacks' first-prefill
-    logits part between the backends by more than LOGIT_TOL (ROADMAP §3).
+def diagnose_recurrent() -> None:
+    """``--diagnose-recurrent``'s serving half: why the recurrent stacks'
+    first-prefill logits part between the backends by more than LOGIT_TOL (ROADMAP §3).
     For each recurrent model at its published size and each precision its
     phase serves, one prompt: the two backends' free-running hidden states
     layer by layer (max|diff| / max|torch|), and how far one bf16 ulp on
@@ -3046,7 +3093,6 @@ def diagnose_recurrent() -> int:
             print(f"[diagnose] {json.dumps(out)}", flush=True)
         del params
         torch.cuda.empty_cache()
-    return 0
 
 
 def block_model(arch):
@@ -3444,24 +3490,47 @@ def train_cfg():
                                num_layers=TRAIN_LAYERS)
 
 
-def train_launches_expected(cfg, spec: str, steps: int) -> dict:
-    """Kernel launches of ``steps`` train steps, from the code: the stack's
-    super-layers and each CE chunk are checkpointed (``remat="full"``), so
-    every linear's kernel runs once forward and once more in backward;
-    backward itself runs the torch reference. 7 linears per layer; the LM
-    head once per CE chunk, on kernel A in bf16 whatever the policy."""
+def train_launches_expected(cfg, spec: str, steps: int,
+                            seq: int = TRAIN_S) -> dict:
+    """Kernel launches of ``steps`` train steps of ``cfg`` under ``spec``,
+    from the code: {"launches": by kernel, "batched": kernel A's
+    expert-batched launches among them}. Each layer's linears by block
+    kind (``GEMMS_PER_KIND``: 7 for an attention layer, a MoE layer's 3
+    FFN GEMMs being expert-batched launches, one for all experts, and its
+    shared expert 3 more; 6 per mamba2 layer; 9 per rwkv6 layer). The
+    stack's super-layers and each CE chunk are checkpointed (``remat``
+    "full" or "dots"), so each of their launches runs once forward and
+    once more in backward; the hybrid tail runs outside them, once;
+    backward itself runs the torch reference. The LM head once per CE
+    chunk, on kernel A in bf16 whatever the policy. Under
+    ``hopper_sparse24`` every linear is kernel D, a MoE layer's experts
+    one launch each."""
+    from repro_torch.models.transformer import layer_kinds
     from repro_torch.runtime import train_loop as tl
-    linears = 2 * 7 * cfg.num_layers * steps
-    head = 2 * (TRAIN_S // min(tl.CE_CHUNK, TRAIN_S)) * steps
+    remat = 2 if cfg.remat in ("full", "dots") else 1
+    n_stack = cfg.num_superlayers * len(cfg.superlayer_pattern)
+    backend = spec.split(":")[2]
+    linears = batched = 0
+    for i, kind in enumerate(layer_kinds(cfg)):
+        runs = remat if i < n_stack else 1
+        n = GEMMS_PER_KIND.get(kind, 7)
+        if kind == "attn_moe":
+            n += 3 * bool(cfg.moe_shared_expert)
+            if backend == "hopper_sparse24":
+                n += 3 * (cfg.num_experts - 1)
+            else:
+                batched += 3 * runs
+        linears += n * runs
+    head = 2 * (seq // min(tl.CE_CHUNK, seq))
     want = {"gemm": 0, "flash_attention": 0, "paged_attention": 0,
             "sparse24_gemm": 0, "block24_gemm": 0}
-    precision, sparsity, backend = spec.split(":")
     if backend == "hopper":
-        want["gemm"] = linears + head
+        want["gemm"] = (linears + head) * steps
     elif backend == "hopper_sparse24":
-        want["sparse24_gemm"] = linears
-        want["gemm"] = head
-    return want
+        want["sparse24_gemm"] = linears * steps
+        want["gemm"] = head * steps
+    return {"launches": want,
+            "batched": batched * steps if backend == "hopper" else 0}
 
 
 def state_bytes(state) -> dict:
@@ -3485,12 +3554,14 @@ def leaf_grad_norms(cfg, rt, policy, params, batch):
     return float(loss), norms, grads
 
 
-def train_arm(tag, cfg, init, batches, steps, opt_cfg, rt, profile=False):
+def train_arm(tag, cfg, init, batches, steps, opt_cfg, rt, profile=False,
+              label="train"):
     """``steps`` train steps under the policy ``tag`` from a copy of
     ``init``: the step-0 loss and per-leaf grad norms (a separate forward
     and backward before the steps), then the steps with every launch
     counter zeroed just before and read just after, each step timed by
-    the host clock around work that ends in a device synchronise."""
+    the host clock around work that ends in a device synchronise. Lines
+    are printed under ``[label]``."""
     import torch
     from repro_torch.core import execution as ex
     from repro_torch.core import tree
@@ -3504,7 +3575,7 @@ def train_arm(tag, cfg, init, batches, steps, opt_cfg, rt, profile=False):
         # 2:4-pruned weight (half of each group of four), not none
         g = grads["layers"][0]["mlp"]["w_gate"]
         nonzero = int((g != 0).sum())
-        print(f"[train] {tag}: layer 0 w_gate gradient nonzero "
+        print(f"[{label}] {tag}: layer 0 w_gate gradient nonzero "
               f"{nonzero} of {g.numel()} (half: {g.numel() // 2})",
               flush=True)
         if nonzero != g.numel() // 2:
@@ -3514,7 +3585,7 @@ def train_arm(tag, cfg, init, batches, steps, opt_cfg, rt, profile=False):
     state = tl.init_state(params, opt_cfg)
     del params
     sb = state_bytes(state)
-    print(f"[train] {tag}: state {json.dumps(sb)} = "
+    print(f"[{label}] {cfg.name} {tag}: state {json.dumps(sb)} = "
           f"{sum(sb.values()) / 2**30:.2f} GiB before the first step "
           f"(grads {sb['params'] / 2**30:.2f} GiB more in a step)",
           flush=True)
@@ -3522,21 +3593,25 @@ def train_arm(tag, cfg, init, batches, steps, opt_cfg, rt, profile=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
-    losses, times = [], []
+    losses, auxes, times = [], [], []
     for i in range(steps):
         t0 = time.perf_counter()
         state, metrics = step(state, batches[i])
         loss = float(metrics["loss"])            # waits for the step
         times.append(time.perf_counter() - t0)
         losses.append(loss)
+        auxes.append(float(metrics["aux"]))
     launches = launch_counts()
     from repro_torch.kernels import fp8_matmul as fm
-    types = dict(fm.TYPE_LAUNCHES)
+    types, batched = dict(fm.TYPE_LAUNCHES), fm.BATCHED_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     want = train_launches_expected(cfg, tag, steps)
-    out = {"policy": tag, "losses": losses, "loss0": loss0,
+    out = {"arch": cfg.name, "policy": tag, "losses": losses,
+           "loss0": loss0, "aux": auxes,
            "grad_norms": norms, "step_ms": [1e3 * t for t in times],
-           "launches": launches, "launches_expected": want,
+           "launches": launches, "launches_expected": want["launches"],
+           "expert_batched_launches": batched,
+           "expert_batched_expected": want["batched"],
            "gemm_by_type": types, "peak_bytes": peak,
            "state_bytes": sum(sb.values())}
     # the median of the steps after the first (which takes the first
@@ -3576,12 +3651,11 @@ def train_arm(tag, cfg, init, batches, steps, opt_cfg, rt, profile=False):
                 "device_busy_ms": "not measured: torch.profiler lost "
                                   "kernel records in every attempt"}
         else:
-            prof, kernels = got
-            spans = device_spans(prof)
+            kernels = got[1]
+            spans = [(e.start, e.end, e.stream) for e in kernels]
             by_name = {}
             for e in kernels:
-                by_name[e.name] = by_name.get(e.name, 0.0) + \
-                    e.time_range.end - e.time_range.start
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.end - e.start
             busy = busy_us(spans) / 1e3
             total = sum(by_name.values()) / 1e3
             gemm = sum(t for n, t in by_name.items()
@@ -3594,11 +3668,12 @@ def train_arm(tag, cfg, init, batches, steps, opt_cfg, rt, profile=False):
                 "kernel_a_share_of_device_time":
                     gemm / total if total else None,
                 "top_kernels_ms": {short_name(n): t / 1e3 for n, t in top}}
-    print(f"[train] {json.dumps(out)}", flush=True)
+    print(f"[{label}] {json.dumps(out)}", flush=True)
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
         fail(f"{tag}: non-finite loss {losses}")
-    if launches != want:
-        fail(f"{tag}: launches {launches}, the code implies {want}")
+    if launches != want["launches"] or batched != want["batched"]:
+        fail(f"{tag}: launches {launches} ({batched} expert-batched), the "
+             f"code implies {want}")
     del state
     torch.cuda.empty_cache()
     return out
@@ -3660,34 +3735,50 @@ def fp8_forward_check(cfg, rt, init, batch) -> dict:
     return out
 
 
-def check_pair(tag, hop, ref, precision):
+def norm_gaps(norms, ref_norms, held=None):
+    """Each held leaf's grad-norm gap relative to ``ref_norms``' norm,
+    floored at 1e-3 of the largest: under fp8 the reference's unscaled
+    e4m3 cast of the cotangent flushes most of the q/k projections'
+    gradient to zero, and what survives of such a leaf has no stable
+    relative size."""
+    floor = 1e-3 * max(ref_norms)
+    return [abs(a - b) / max(b, floor)
+            for i, (a, b) in enumerate(zip(norms, ref_norms))
+            if held is None or held[i]]
+
+
+def check_pair(tag, hop, ref, precision, held=None, aux=False, hard=True,
+               label="train"):
     """``hop`` (the hopper arm) against ``ref`` (the torch backend's),
     from one init and the same batches: the loss of step 0 and of each
-    step after it, and (bf16) each leaf's step-0 grad norm."""
+    step after it (with ``aux``, also each step's aux loss), and (bf16)
+    the step-0 grad norm of each leaf ``held`` marks (default all). A
+    mismatch fails the run, or with ``hard`` false is returned in "ok"
+    for the caller's fallback."""
     rel = max(abs(a / b - 1) for a, b in zip(
         [hop["loss0"]] + hop["losses"], [ref["loss0"]] + ref["losses"]))
-    # each leaf's gap relative to its norm, floored at 1e-3 of the largest
-    # leaf norm: under fp8 the reference's unscaled e4m3 cast of the
-    # cotangent flushes most of the q/k projections' gradient to zero, and
-    # what survives of such a leaf has no stable relative size
-    floor = 1e-3 * max(ref["grad_norms"])
-    gaps = [abs(a - b) / max(b, floor)
-            for a, b in zip(hop["grad_norms"], ref["grad_norms"])]
+    aux_rel = max(abs(a / b - 1) for a, b in zip(hop["aux"], ref["aux"])) \
+        if aux else 0.0
+    gaps = norm_gaps(hop["grad_norms"], ref["grad_norms"], held)
     worst = max(gaps)
     grad_tol = TRAIN_GRAD_TOL.get(precision)
-    ok = rel <= TRAIN_LOSS_TOL[precision] and (
-        grad_tol is None or worst <= grad_tol)
-    print(f"[train] {tag} vs torch backend: step-0 loss {hop['loss0']:.6f}"
-          f" / {ref['loss0']:.6f}, losses {hop['losses']} / {ref['losses']}"
-          f" (largest rel {rel:.2e}, tol {TRAIN_LOSS_TOL[precision]:g}); "
-          f"largest per-leaf step-0 grad-norm gap {worst:.2e} over "
-          f"{len(gaps)} leaves (tol "
+    loss_ok = max(rel, aux_rel) <= TRAIN_LOSS_TOL[precision]
+    grad_ok = grad_tol is None or worst <= grad_tol
+    ok = loss_ok and grad_ok
+    print(f"[{label}] {tag} vs torch backend: step-0 loss "
+          f"{hop['loss0']:.6f} / {ref['loss0']:.6f}, losses {hop['losses']}"
+          f" / {ref['losses']} (largest rel {rel:.2e}"
+          + (f"; aux {hop['aux']} / {ref['aux']}, largest rel "
+             f"{aux_rel:.2e}" if aux else "")
+          + f", tol {TRAIN_LOSS_TOL[precision]:g}); largest per-leaf step-0 "
+          f"grad-norm gap {worst:.2e} over {len(gaps)} leaves (tol "
           f"{grad_tol if grad_tol is not None else 'none: printed only'}) "
           f"{'ok' if ok else 'MISMATCH'}", flush=True)
-    if not ok:
-        fail(f"{tag}: against the torch backend: loss rel {rel:.2e}, "
-             f"grad-norm gap {worst:.2e}")
-    return {"loss0_rel": rel, "grad_norm_gap": worst}
+    if hard and not ok:
+        fail(f"{tag}: against the torch backend: loss rel {rel:.2e}, aux "
+             f"rel {aux_rel:.2e}, grad-norm gap {worst:.2e}")
+    return {"loss0_rel": rel, "aux_rel": aux_rel, "grad_norm_gap": worst,
+            "held_leaves": len(gaps), "loss_ok": loss_ok, "grad_ok": grad_ok}
 
 
 def train_gemm_rows():
@@ -4001,6 +4092,628 @@ def train_phase():
 
 
 # ---------------------------------------------------------------------------
+# [train-blocks]: training the MoE, hybrid and rwkv6 block kinds
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept or None for the whole stack): granite and rwkv6 cut in
+# depth as [train] cuts llama3-8b; zamba2 whole, since its hybrid tail only
+# exists at full depth
+TRAIN_BLOCKS = (("granite-moe-3b-a800m", 8), ("zamba2-1.2b", None),
+                ("rwkv6-3b", 8))
+TRAIN_BLOCK_ARMS = ("bf16:dense:hopper", "bf16:dense:torch")
+
+
+def train_expert_rows(cfg):
+    """``registry.hopper_experts`` (kernel A's expert-batched launch) at
+    the training step's expert shapes, forward and backward under
+    autograd, against the ``torch`` backend's per-expert path (the plain
+    version, whose gradient the hopper entry's backward differentiates):
+    the output and both operand gradients within GEMM_REL_TOL, one launch
+    per forward, a bit-equal repeat. Timed: the reference backward (the
+    loop of one f32 GEMM per expert) per call, by CUDA events with the
+    host's gaps in; at the gate/up shape (the kernels line's row) also the
+    kernel with its bound and ``torch.bmm``."""
+    import torch
+    from repro_torch.core import execution as ex
+    from repro_torch.kernels import fp8_matmul as fm
+    from repro_torch.kernels import registry
+    from repro_torch.models import moe
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    gs = min(cfg.moe_group_size, TRAIN_B * TRAIN_S)
+    E = cfg.num_experts
+    M = TRAIN_B * TRAIN_S // gs * moe.capacity(cfg, gs)
+    plain_pol = ex.parse_policy("bf16:dense:torch")
+    bf16 = torch.bfloat16
+    rows = []
+    for label, K, N in (("train_moe_gate_up", cfg.d_model, cfg.d_ff),
+                        ("train_moe_down", cfg.d_ff, cfg.d_model)):
+        x = torch.randn((E, M, K), generator=gen, device="cuda").to(bf16)
+        w = (torch.randn((E, K, N), generator=gen, device="cuda")
+             * K ** -0.5).to(bf16)
+        g = torch.randn((E, M, N), generator=gen, device="cuda").to(bf16)
+        xh, wh = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        before = fm.BATCHED_LAUNCHES
+        out = registry.hopper_experts(xh, wh)
+        launched = fm.BATCHED_LAUNCHES - before
+        dx, dw = torch.autograd.grad(out, (xh, wh), g, retain_graph=True)
+        with torch.no_grad():
+            again = registry.hopper_experts(x, w)
+        xp, wp = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        ref = ex.matmul_experts(xp, wp, plain_pol)
+        rdx, rdw = torch.autograd.grad(ref, (xp, wp), g)
+        rels, errs = {}, {}
+        for name, a, b in (("out", out, ref), ("dx", dx, rdx),
+                           ("dw", dw, rdw)):
+            errs[name] = (a.float() - b.float()).abs().max().item()
+            rels[name] = errs[name] / max(b.float().abs().max().item(), 1e-30)
+        grads_equal = bit_equal(dx, rdx) and bit_equal(dw, rdw)
+        same = bit_equal(out.detach(), again)
+        ok = launched == 1 and same and bool(torch.isfinite(out).all()) \
+            and max(rels.values()) <= GEMM_REL_TOL["bfloat16"]
+        plan = plan_note(M, N, K, "gemm", E)
+        print(f"[train-blocks] hopper_experts {label} E={E} M={M} K={K} "
+              f"N={N} bf16 under autograd against the torch backend's "
+              f"per-expert path: rel out {rels['out']:.2e}, dx "
+              f"{rels['dx']:.2e}, dw {rels['dw']:.2e} (tol "
+              f"{GEMM_REL_TOL['bfloat16']}); gradients bit-equal "
+              f"{grads_equal}; {launched} launch per forward; repeat "
+              f"bit-equal={same}; plan {plan} {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            fail(f"hopper_experts {label} under autograd: rel {rels}, "
+                 f"{launched} launches, repeat bit-equal {same}")
+        backward_ms = time_ms(lambda: torch.autograd.grad(
+            out, (xh, wh), g, retain_graph=True), 3)
+        del dx, dw, rdx, rdw, ref, again, xp, wp
+        row = {"label": label, "E": E, "M": M, "K": K, "N": N,
+               "type": "bf16", "out": "bfloat16", "max_abs_err": errs["out"],
+               "grad_rel": {"dx": rels["dx"], "dw": rels["dw"]},
+               "grads_bit_equal": grads_equal, "plan": plan,
+               "reference_backward_ms": backward_ms,
+               "reference_backward_timer": "cuda events, host gaps in"}
+        if label == "train_moe_gate_up":
+            ms, copies, timer = cold_ms(
+                lambda a, b: fm.fp8_matmul_batched(a, b, bf16), (x, w), 20)
+            lib, _, lib_timer = cold_ms(torch.bmm, (x, w), 20)
+            bms, by = bound_ms(E * (M * K + K * N) * 2 + E * M * N * 2,
+                               2.0 * E * M * N * K, "bf16")
+            row.update(ms=ms, operand_copies=copies, timer=timer,
+                       plain_ms=time_ms(lambda: fm.fp8_matmul_batched_plain(
+                           x, w, bf16), 3),
+                       library_ms=lib, library_note="torch.bmm",
+                       library_timer=lib_timer, bound_ms=bms, bound_by=by)
+        print(f"[train-blocks-gemm] {json.dumps(row)}", flush=True)
+        rows.append(row)
+        del x, w, g, xh, wh, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def perm_backend(seed: int) -> str:
+    """Register (once) and name a matmul backend ``torch_perm<seed>``: the
+    torch backend's dense GEMM (f32 product of upcast operands, then the
+    output type) over a seeded permutation of K, the same for every call
+    of one K. Another summation order and nothing else: its bf16 outputs
+    part from the torch backend's only where the f32 sums straddle a
+    rounding boundary, as a second correct GEMM's do. Its gradient is the
+    torch backend's."""
+    import torch
+    from repro_torch.kernels import registry
+    name = f"torch_perm{seed}"
+    if name in registry.available_backends():
+        return name
+    perms = {}
+
+    def dense(x, w, *, out_dtype=torch.bfloat16, bm=None, bn=None,
+              bk=None):
+        K = w.shape[-2]
+        if K not in perms:
+            gen = torch.Generator(device=w.device).manual_seed(seed * 7919
+                                                               + K)
+            perms[K] = torch.randperm(K, generator=gen, device=w.device)
+        p = perms[K]
+        return torch.matmul(x.float().index_select(-1, p),
+                            w.float().index_select(-2, p)).to(out_dtype)
+    t = registry.get_backend("torch")
+    registry.register_backend(registry.MatmulBackend(
+        name=name, dense=dense, fp8=t.fp8, fp8_qdot=t.fp8_qdot,
+        sparse24=t.sparse24, description="torch over a permuted K"))
+    return name
+
+
+# K-permuted torch backends (perm_backend) beside the f32 run in a
+# recurrent stack's fallback gate (against_reorderings)
+TRAIN_PERM_SEEDS = 3
+
+
+def against_reorderings(tag, cfg, rt, init, batch, hop, ref, held) -> dict:
+    """The fallback of a recurrent stack whose step-0 loss or held grad
+    norms miss ``check_pair``'s gate, where the recurrence amplifies the
+    backends' bf16 rounding: an f32 run of the same weights (f32 weights
+    and activations, the torch backend) and TRAIN_PERM_SEEDS K-permuted
+    torch backends (``perm_backend``: the torch backend's GEMM summing in
+    another order, nothing else). The hopper arm's step-0 loss, and
+    separately its held grad norms (the worst leaf's gap, ``norm_gaps``),
+    must lie at most F32_FACTOR times as far from the f32 run as the
+    farthest of the torch backend and its reorderings; otherwise the run
+    fails. ``prefill_against_f32``'s rule has the torch backend alone on
+    that side; here its reorderings fail that rule themselves (the torch
+    backend makes the f32 run's own library calls on the same shapes and
+    lies closer to it than any of them: ROADMAP §3). Printed beside: how
+    far each reordering moves the torch arm's own loss and grad norms."""
+    import dataclasses
+    import torch
+    from repro_torch.core import execution as ex
+    p32 = tree_f32(init)
+    rt32 = dataclasses.replace(rt, act_dtype=torch.float32,
+                               param_dtype=torch.float32)
+    loss32, norms32, grads = leaf_grad_norms(
+        cfg, rt32, ex.parse_policy("bf16:dense:torch"), p32, batch)
+    del grads, p32
+    runs = {"hopper": (hop["loss0"], hop["grad_norms"]),
+            "torch": (ref["loss0"], ref["grad_norms"])}
+    for seed in range(1, TRAIN_PERM_SEEDS + 1):
+        name = perm_backend(seed)
+        loss, norms, grads = leaf_grad_norms(
+            cfg, rt, ex.parse_policy(f"bf16:dense:{name}"), init, batch)
+        del grads
+        runs[name] = (loss, norms)
+    torch.cuda.empty_cache()
+    dist = {k: {"loss_vs_f32": abs(loss - loss32),
+                "grad_vs_f32": max(norm_gaps(norms, norms32, held)),
+                "loss_vs_torch": abs(loss - ref["loss0"]),
+                "grad_vs_torch": max(norm_gaps(norms, ref["grad_norms"],
+                                               held))}
+            for k, (loss, norms) in runs.items()}
+    out = {"loss_f32": loss32, "distances": dist}
+    for k in ("loss", "grad"):
+        reach = max(d[f"{k}_vs_f32"] for n, d in dist.items()
+                    if n != "hopper")
+        out[f"{k}_reach"] = reach
+        out[f"{k}_ok"] = dist["hopper"][f"{k}_vs_f32"] <= F32_FACTOR * reach
+    ok = out["loss_ok"] and out["grad_ok"]
+    perms = [n for n in runs if n.startswith("torch_perm")]
+    print(f"[train-blocks] {tag} step 0 against an f32 run, beside the "
+          f"torch backend and {len(perms)} K-reorderings of it: loss hopper "
+          f"{dist['hopper']['loss_vs_f32']:.3e}, farthest of theirs "
+          f"{out['loss_reach']:.3e}; worst grad-norm gap hopper "
+          f"{dist['hopper']['grad_vs_f32']:.3e}, farthest of theirs "
+          f"{out['grad_reach']:.3e} (hopper at most {F32_FACTOR}x) "
+          f"{'ok' if ok else 'MISMATCH'}; a reordering moves the torch "
+          f"arm's own loss by "
+          + ", ".join(f"{dist[n]['loss_vs_torch']:.2e}" for n in perms)
+          + " and its grad norms by "
+          + ", ".join(f"{dist[n]['grad_vs_torch']:.3e}" for n in perms)
+          + f" (hopper: {dist['hopper']['loss_vs_torch']:.2e}, "
+          f"{dist['hopper']['grad_vs_torch']:.3e})", flush=True)
+    if not ok:
+        fail(f"{tag}: the hopper arm's step-0 loss or grad norms lie farther "
+             f"from an f32 run than {F32_FACTOR}x the torch backend and its "
+             f"K-reorderings: {out}")
+    return out
+
+
+def train_sublayers(kind, p, cfg, rt):
+    """A layer's training forward as its sublayers, each x -> (the
+    sublayer's output, which the residual adds to x; its aux loss):
+    attention then the MLP or MoE layer; the mamba2 mixer; rwkv6's time
+    mix then channel mix (``train_block`` cut where ``layerwise_check``
+    cuts it)."""
+    import torch
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import rwkv6 as rk
+    from repro_torch.models.attention import attention_block
+    from repro_torch.models.layers import rms_norm, swiglu_mlp
+
+    def unit(norm, fn):
+        def run(x):
+            out = fn(rms_norm(x, p[norm], cfg.norm_eps))
+            return out if isinstance(out, tuple) else (out, torch.zeros(
+                (), dtype=torch.float32, device=x.device))
+        return run
+    if kind == "mamba2":
+        return [("mamba2", unit("norm1", lambda h: m2.mamba2_block(
+            h, p["mamba"], cfg, rt)))]
+    if kind == "rwkv6":
+        return [("rwkv6 time mix", unit("norm1", lambda h: rk.rwkv6_block(
+            h, p["rwkv"], cfg, rt))),
+                ("rwkv6 channel mix", unit("norm2", lambda h:
+                                           rk.rwkv6_channel_mix(
+                                               h, p["rwkv"], cfg, rt)))]
+    window = cfg.window_size if kind == "attn_local" else 0
+    ffn = (lambda h: moe_mod.moe_mlp(h, p["moe"], cfg, rt)) \
+        if kind == "attn_moe" else \
+        (lambda h: swiglu_mlp(h, p["mlp"], cfg, rt))
+    return [("attention", unit("norm1", lambda h: attention_block(
+        h, p["attn"], cfg, rt, window=window))),
+            ("moe" if kind == "attn_moe" else "mlp", unit("norm2", ffn))]
+
+
+def sublayer_grads_check(tag, cfg, params, batch) -> dict:
+    """Every sublayer's training forward and backward (``train_sublayers``,
+    no remat) under ``bf16:dense:hopper`` and ``bf16:dense:torch``, teacher
+    forced as ``layerwise_check`` is for serving: one forward of ``batch``
+    under the torch backend gives each sublayer's input, where both
+    backends run it. Each sublayer is differentiated along two output
+    cotangents, its aux loss entering at AUX_LOSS_WEIGHT: a seeded random
+    one, and the torch backend's own step-0 flow (the step-0 loss, CE and
+    the aux losses, differentiated sublayer by sublayer from the head
+    down). The output, the input's gradient and each of the layer's
+    leaves' gradients (a MoE sublayer's router and experts on one routing:
+    both sides route the same input) must agree within LAYER_TOL
+    (max|diff| / max|torch|). Along the step-0 flow a few entries can sit
+    where the flow is ill-conditioned (rwkv6's first token: its wkv output
+    is 0 at init, so the per-head norm's backward scales it by
+    rsqrt(64e-5)); a sublayer that misses LAYER_TOL there is held instead
+    to TRAIN_PERM_SEEDS K-reorderings of the torch backend
+    (``perm_backend``) on the same input and cotangent: at least one of
+    them must miss LAYER_TOL too, and the hopper gap must be at most
+    F32_FACTOR times the farthest of theirs. End to end, a stack that
+    amplifies the backends' bf16 rounding (MoE routing, the recurrences)
+    cannot hold its forward or its gradients to such a gate; sublayer by
+    sublayer it can."""
+    import torch
+    from repro_torch.core import execution as ex
+    from repro_torch.core import tree
+    from repro_torch.models.layers import RuntimeCfg, embed_tokens, rms_norm
+    from repro_torch.models.transformer import block_params, layer_kinds
+    from repro_torch.runtime import train_loop as tl
+
+    def side(be):
+        return ex.apply_policy(cfg, RuntimeCfg(), ex.parse_policy(
+            f"bf16:dense:{be}"))
+    sides = {be: side(be) for be in ("hopper", "torch")}
+    units, inputs = [], []
+    with torch.no_grad():
+        x = embed_tokens(batch["inputs"], params["embed"]).to(torch.bfloat16)
+        for li, (kind, p) in enumerate(zip(layer_kinds(cfg),
+                                           params["layers"])):
+            p = block_params(kind, p, params)
+            for si, (_, unit) in enumerate(train_sublayers(
+                    kind, p, *sides["torch"])):
+                units.append((li, si, kind, p))
+                inputs.append(x)
+                x = x + unit(x)[0]
+    c, r = sides["torch"]
+    top = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        ce = tl.chunked_cross_entropy(
+            rms_norm(top, params["final_norm"], cfg.norm_eps),
+            params["head"], batch["labels"], cfg.vocab_size,
+            policy=ex.policy_from(c, r))
+        flow, = torch.autograd.grad(ce, top)
+    del top, x
+
+    def run(i, c, r, cots):
+        """Sublayer i under (c, r): its output, and for each cotangent the
+        gradients of the input and of each leaf used."""
+        li, si, kind, p = units[i]
+        xi = inputs[i].detach().requires_grad_(True)
+        leaves = [t.detach().requires_grad_(True) for t in tree.leaves(p)]
+        it = iter(leaves)
+        name, unit = train_sublayers(kind, tree.map_tree(
+            lambda _: next(it), p), c, r)[si]
+        grads = {}
+        with torch.enable_grad():
+            out, aux = unit(xi)
+            for k, ct in cots.items():
+                grads[k] = [g for g in torch.autograd.grad(
+                    (out.float() * ct.float()).sum()
+                    + tl.AUX_LOSS_WEIGHT * aux, [xi] + leaves,
+                    allow_unused=True, retain_graph=True) if g is not None]
+        return name, out.detach(), grads
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp_min(1e-30))
+
+    def gaps(a, b, k):
+        """(output gap, worst gradient gap) of run a against run b."""
+        return rel(a[1], b[1]), max(rel(x, y) for x, y in zip(a[2][k],
+                                                               b[2][k]))
+    tol = LAYER_TOL["bf16"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    worst = {(k, w): (0.0, None) for k in ("random", "flow")
+             for w in ("output", "gradients")}
+    reordered = []
+    for i in reversed(range(len(units))):
+        cots = {"random": torch.randn(flow.shape, generator=gen,
+                                      device="cuda").to(flow.dtype),
+                "flow": flow}
+        res = {be: run(i, *sides[be], cots) for be in sides}
+        at = (units[i][0], res["torch"][0])
+        for k in cots:
+            g = gaps(res["hopper"], res["torch"], k)
+            if k == "flow" and max(g) > tol:
+                theirs = []
+                for seed in range(1, TRAIN_PERM_SEEDS + 1):
+                    theirs.append(max(gaps(run(i, *side(perm_backend(
+                        seed)), {k: flow}), res["torch"], k)))
+                reach = max(theirs)
+                reordered.append({"at": at, "hopper": max(g),
+                                  "reorderings": theirs,
+                                  "ok": reach > tol
+                                  and max(g) <= F32_FACTOR * reach})
+                continue
+            for w, v in zip(("output", "gradients"), g):
+                if v >= worst[(k, w)][0]:
+                    worst[(k, w)] = (v, at)
+        flow = flow + res["torch"][2]["flow"][0]
+        inputs[i] = None
+        del res
+    torch.cuda.empty_cache()
+    ok = max(w for w, _ in worst.values()) <= tol \
+        and all(f["ok"] for f in reordered)
+    for k, what in (("random", "one seeded random cotangent each"),
+                    ("flow", "the torch backend's step-0 cotangents")):
+        print(f"[{tag}] sublayer by sublayer, forward and backward against "
+              f"the torch backend (teacher forced on its step-0 inputs, "
+              f"{what}, {len(units)} sublayers): worst max|err|/max|torch| "
+              + ", ".join(f"{w} {worst[(k, w)][0]:.3e} at (layer, "
+                          f"sublayer) {worst[(k, w)][1]}"
+                          for w in ("output", "gradients"))
+              + f" (tolerance {tol})"
+              + ("".join(f"; {f['at']} held to {len(f['reorderings'])} "
+                         f"K-reorderings of the torch backend: hopper "
+                         f"{f['hopper']:.3e}, theirs "
+                         + ", ".join(f"{v:.3e}" for v in f["reorderings"])
+                         + f" (one beyond {tol}, hopper at most "
+                           f"{F32_FACTOR}x the farthest: "
+                         + ("met" if f["ok"] else "MISSED") + ")"
+                         for f in reordered) if k == "flow" else "")
+              + f" {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"{tag}: a sublayer's forward or backward differs from the "
+             f"torch backend beyond {tol}: {worst}, {reordered}")
+    return {"sublayer_grad_worst_rel": {f"{k} {w}": v for (k, w), (v, _)
+                                        in worst.items()},
+            "sublayers_held_to_reorderings": reordered}
+
+
+def train_blocks_phase():
+    """granite-moe-3b-a800m (8 of 32 layers), zamba2-1.2b (whole) and
+    rwkv6-3b (8 of 32 layers) at full width, B=4, S=512, bf16 weights
+    from a seeded generator on the card, ``SyntheticLM`` batches: three
+    steps under ``bf16:dense:hopper`` and ``bf16:dense:torch`` from copies
+    of one init, their launches, losses (granite's aux too) and step-0
+    grad norms held (not granite's router and experts; a recurrent
+    stack's loss or grad norms that miss, against an f32 run beside the
+    torch backend's K-reorderings, ``against_reorderings``), every
+    sublayer's forward and backward held teacher forced on the torch
+    backend's step-0 inputs and cotangents, kernel A's expert-batched
+    launch under autograd at the training shapes, one hopper step
+    profiled."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import RuntimeCfg
+    from repro_torch.models.transformer import reference_leaves
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    rt = RuntimeCfg()
+    opt_cfg = adamw.AdamWConfig(total_steps=1000, warmup_steps=20)
+    results, summary, expert_rows = {}, {}, []
+    hop_tag, ref_tag = TRAIN_BLOCK_ARMS
+    for arch, layers in TRAIN_BLOCKS:
+        t0 = time.perf_counter()
+        full = get_arch(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, num_layers=layers)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        init = init_params(cfg, gen, device="cuda")
+        n_params = sum(t.numel() for t in tree.leaves(init))
+        cut = "uncut" if layers is None else \
+            f"depth cut from {full.num_layers}"
+        print(f"[train-blocks] {arch}: {cfg.num_layers} layers ({cut}; "
+              f"{cfg.superlayer_pattern} x {cfg.num_superlayers} + "
+              f"{cfg.hybrid_tail_layers} tail), d_model {cfg.d_model}, d_ff "
+              f"{cfg.d_ff}, experts {cfg.num_experts} top "
+              f"{cfg.experts_top_k}, ssm {cfg.ssm_kind or 'none'} chunk "
+              f"{min(rt.ssm_chunk, cfg.ssm_chunk)}; {n_params / 1e9:.2f} B "
+              f"params; B={TRAIN_B} S={TRAIN_S}, remat {cfg.remat}",
+              flush=True)
+        data = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=SEED)
+        batches = [{k: torch.from_numpy(v).to("cuda")
+                    for k, v in data.batch_at(i).items()}
+                   for i in range(TRAIN_STEPS)]
+        # held by their grad norms: every leaf but a MoE layer's router
+        # and expert stacks, which routing flips make discontinuous
+        names = [r.name for r in tree.leaves(reference_leaves(init, cfg))]
+        held = [not ("/moe/" in n and "/moe/shared/" not in n)
+                for n in names]
+        gates = {}
+        if cfg.num_experts:
+            rows = train_expert_rows(cfg)
+            expert_rows += rows
+        gates.update(sublayer_grads_check(f"train-blocks {arch}", cfg,
+                                          init, batches[0]))
+        spent = {"set-up and checks": time.perf_counter() - t0}
+        arms = {}
+        for tag in TRAIN_BLOCK_ARMS:
+            t1 = time.perf_counter()
+            arms[tag] = train_arm(tag, cfg, init, batches, TRAIN_STEPS,
+                                  opt_cfg, rt, profile=tag == hop_tag,
+                                  label="train-blocks")
+            spent[tag] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        first = check_pair(f"{arch} {hop_tag}", arms[hop_tag],
+                           arms[ref_tag], "bf16", held=held,
+                           aux=bool(cfg.num_experts),
+                           hard=not cfg.ssm_kind, label="train-blocks")
+        gates["step0"] = first
+        if not (first["loss_ok"] and first["grad_ok"]):
+            gates["against_reorderings"] = against_reorderings(
+                f"{arch} {hop_tag}", cfg, rt, init, batches[0],
+                arms[hop_tag], arms[ref_tag], held)
+        spent["gates"] = time.perf_counter() - t1
+        del init
+        torch.cuda.empty_cache()
+        for tag, a in arms.items():
+            results[f"train-blocks {arch} {tag}"] = {
+                "launches": a["launches"],
+                "expert_batched_launches": a["expert_batched_launches"]}
+        summary[arch] = {
+            "layers": cfg.num_layers, "params": n_params, "gates": gates,
+            "arms": {tag: {k: a[k] for k in (
+                "ms_per_step", "tok_s", "peak_bytes", "state_bytes",
+                "launches", "expert_batched_launches")}
+                for tag, a in arms.items()},
+            "seconds": time.perf_counter() - t0, "seconds_by_part": spent}
+        summary[arch]["arms"][hop_tag]["profile"] = arms[hop_tag]["profile"]
+        if cfg.num_experts:
+            # one reference backward per expert GEMM per step: gate and up,
+            # then down, in each MoE layer
+            per = {r["label"]: r["reference_backward_ms"] for r in rows}
+            summary[arch]["expert_reference_backward_ms"] = {
+                **per, "per_step": cfg.num_layers * (
+                    2 * per["train_moe_gate_up"] + per["train_moe_down"])}
+        print(f"[train-blocks] {arch}: {summary[arch]['seconds']:.1f}s ("
+              + ", ".join(f"{k} {v:.1f}s" for k, v in spent.items()) + ")",
+              flush=True)
+    print(f"[train-blocks-summary] {json.dumps(summary)}", flush=True)
+    print(f"[train-blocks] phase {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return results, expert_rows, summary
+
+
+def gemm_rounding_stats(cfg, params, tokens) -> dict:
+    """Every linear of one no-grad forward of ``cfg`` (the torch backend's
+    inputs), held to its exact product (float64): the share of bf16
+    outputs that are not the exact product rounded to nearest, under
+    kernel A, the torch backend and ``torch_perm1``; and of the f32
+    products (kernel A's f32 output, the torch backend's f32 product), the
+    RMS error over the RMS of the exact product and the mean signed error
+    toward zero (negative: the sums shrink)."""
+    import torch
+    from repro_torch.core import execution as ex
+    from repro_torch.kernels import fp8_matmul as fm
+    from repro_torch.kernels import registry
+    from repro_torch.models.layers import RuntimeCfg
+    perm = registry.get_backend(perm_backend(1)).dense
+    torch_dense = registry.get_backend("torch").dense
+    rows = []
+
+    def record(x, w, *, out_dtype=torch.bfloat16, bm=None, bn=None,
+               bk=None):
+        out = torch_dense(x, w, out_dtype=out_dtype)
+        x2 = x.reshape(-1, x.shape[-1])
+        exact = x2.double() @ w.double()
+        near = exact.to(torch.bfloat16)
+        scale = exact.pow(2).mean().sqrt()
+        row = {"K": w.shape[0], "N": w.shape[1], "out": str(out_dtype)}
+        a16 = fm.fp8_matmul(x2.contiguous(), w.contiguous(), torch.bfloat16)
+        row["flips"] = {k: float((v != near).float().mean()) for k, v in (
+            ("kernel_a", a16),
+            ("torch", torch_dense(x2, w, out_dtype=torch.bfloat16)),
+            ("torch_perm1", perm(x2, w, out_dtype=torch.bfloat16)))}
+        for k, v in (("kernel_a", fm.fp8_matmul(x2.contiguous(),
+                                                w.contiguous(),
+                                                torch.float32)),
+                     ("torch", x2.float() @ w.float())):
+            err = v.double() - exact
+            row[f"{k}_f32_rel_rms"] = float(err.pow(2).mean().sqrt() / scale)
+            row[f"{k}_f32_bias_to_zero"] = float(
+                (err * exact.sign()).mean() / scale)
+        rows.append(row)
+        return out
+    t = registry.get_backend("torch")
+    registry.register_backend(registry.MatmulBackend(
+        name="torch_record", dense=record, fp8=t.fp8, fp8_qdot=t.fp8_qdot,
+        sparse24=t.sparse24))
+    c, r = ex.apply_policy(cfg, RuntimeCfg(),
+                           ex.parse_policy("bf16:dense:torch_record"))
+    from repro_torch.models import forward
+    with torch.no_grad():
+        forward(params, tokens, c, r)
+    keys = rows[0]["flips"]
+    return {"linears": len(rows),
+            "flip_share_mean": {k: sum(r_["flips"][k] for r_ in rows)
+                                / len(rows) for k in keys},
+            "flip_share_max": {k: max(r_["flips"][k] for r_ in rows)
+                               for k in keys},
+            **{f"{k}_{m}_max": max(abs(r_[f"{k}_{m}"]) for r_ in rows)
+               for k in ("kernel_a", "torch")
+               for m in ("f32_rel_rms", "f32_bias_to_zero")},
+            **{f"{k}_f32_bias_to_zero_mean": sum(
+                r_[f"{k}_f32_bias_to_zero"] for r_ in rows) / len(rows)
+               for k in ("kernel_a", "torch")}}
+
+
+def diagnose_train(arch: str = "rwkv6-3b", seeds: int = 4) -> dict:
+    """``--diagnose-recurrent``'s training half: where ``arch``'s step-0
+    gradients part between the backends at ``[train-blocks]``' depth
+    (ROADMAP §3). Gates nothing; prints JSON.
+
+    * ``gemm``: every linear's rounding against its exact product
+      (:func:`gemm_rounding_stats`).
+    * ``ensemble``: the step-0 loss and held grad norms (``train_arm``'s
+      ``leaf_grad_norms``, remat as trained) under the hopper and torch
+      backends, ``seeds`` K-permuted torch backends (:func:`perm_backend`)
+      and an f32 run: each one's worst held-leaf gap from the torch arm
+      and from the f32 run, its loss's distance from both, and layer 0's
+      ``w_r`` grad norm."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import execution as ex
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import RuntimeCfg
+    from repro_torch.models.transformer import reference_leaves
+    layers = dict(TRAIN_BLOCKS)[arch]
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    init = init_params(cfg, gen, device="cuda")
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in SyntheticLM(
+        cfg.vocab_size, TRAIN_S, TRAIN_B, seed=SEED).batch_at(0).items()}
+    names = [r.name for r in tree.leaves(reference_leaves(init, cfg))]
+    held = [not ("/moe/" in n and "/moe/shared/" not in n) for n in names]
+    out = {"arch": arch, "layers": cfg.num_layers,
+           "gemm": gemm_rounding_stats(cfg, init, batch["inputs"])}
+    print(f"[diagnose-train] gemm {json.dumps(out['gemm'])}", flush=True)
+    rt = RuntimeCfg()
+    w_r = names.index("layers/b0/rwkv/w_r") if "layers/b0/rwkv/w_r" in \
+        names else None
+    arms = {}
+    for tag in ["bf16:dense:torch", "bf16:dense:hopper"] + [
+            f"bf16:dense:{perm_backend(s)}" for s in range(1, seeds + 1)]:
+        loss, norms, g = leaf_grad_norms(cfg, rt, ex.parse_policy(tag),
+                                         init, batch)
+        del g
+        arms[tag.split(":")[2]] = (loss, norms)
+    rt32 = dataclasses.replace(rt, act_dtype=torch.float32,
+                               param_dtype=torch.float32)
+    p32 = tree_f32(init)
+    loss, norms, g = leaf_grad_norms(cfg, rt32, ex.parse_policy(
+        "bf16:dense:torch"), p32, batch)
+    del g, p32
+    arms["f32"] = (loss, norms)
+    torch.cuda.empty_cache()
+    ens = {}
+    for k, (loss, norms) in arms.items():
+        ens[k] = {"loss0": loss,
+                  "loss_vs_torch": abs(loss - arms["torch"][0]),
+                  "loss_vs_f32": abs(loss - arms["f32"][0]),
+                  "grad_gap_vs_torch": max(norm_gaps(
+                      norms, arms["torch"][1], held)),
+                  "grad_gap_vs_f32": max(norm_gaps(
+                      norms, arms["f32"][1], held))}
+        if w_r is not None:
+            ens[k]["layer0_w_r_norm"] = norms[w_r]
+    out["ensemble"] = ens
+    print(f"[diagnose-train] ensemble {json.dumps(ens)}", flush=True)
+    del init
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # [dist]: the distributed dry-run, and the card's own steps under its bound
 # ---------------------------------------------------------------------------
 
@@ -4103,7 +4816,7 @@ def dist_dots_step(smi, cfg, rt) -> dict:
     (lf, gf, nf), (ld, gd, nd) = got["full"], got["dots"]
     same = bool(torch.equal(lf, ld)) and len(gf) == len(gd) and all(
         torch.equal(a, b) for a, b in zip(gf, gd))
-    want = train_launches_expected(cfg, "bf16:dense:hopper", 1)
+    want = train_launches_expected(cfg, "bf16:dense:hopper", 1)["launches"]
     print(f"[dist] remat=dots step: loss {float(ld):.6f}, loss and "
           f"{len(gd)} gradient leaves bit-equal to remat=full: {same}; "
           f"launches {nd} (full {nf}, expected {want}) ({smi})", flush=True)
@@ -4368,7 +5081,7 @@ def check_serve(tag, run, base, launches, cfg, policy=None):
 
 def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
                 paged_rows, sweep_launches, serve, expert_rows, train_rows,
-                train_drow):
+                train_drow, block_rows):
     def pick(rows, **match):
         return next(r for r in rows
                     if all(r[k] == v for k, v in match.items()))
@@ -4480,6 +5193,20 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
                     "launches": sum(by_policy.values()),
                     "launches_by_policy": by_policy,
                     **measured(row), "shape": shape})
+    # kernel A's expert-batched launch under autograd ([train-blocks]):
+    # granite's expert gate/up at the training step's shape (two groups of
+    # capacity 256 rows per expert); launches from the [train-blocks] arms
+    xt = pick(block_rows, label="train_moe_gate_up")
+    by_policy = {p: r["expert_batched_launches"] for p, r in serve.items()
+                 if p.startswith("train-blocks ")}
+    out.append({"name": "gemm_experts_train", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/gemm.cu",
+                "replaces": "src/repro/kernels/fp8_matmul.py:56 (vmapped "
+                            "over experts, src/repro/models/moe.py:149-164)",
+                "launches": sum(by_policy.values()),
+                "launches_by_policy": by_policy, **measured(xt),
+                "shape": f"E={xt['E']} M={xt['M']} K={xt['K']} N={xt['N']} "
+                         "bf16->bf16, forward of an autograd Function"})
     # kernel E is on no serving path (its counter read 0 in every policy's
     # run, which check_serve requires): its launches are those of its one
     # entry point, ops.block24_matmul, driven in block24_phase
@@ -4524,8 +5251,14 @@ def parse_args(argv):
                          "print their rows and no result line")
     ap.add_argument("--diagnose-recurrent", action="store_true",
                     help="build, then print the recurrent stacks' rounding "
-                         "diagnosis (free-running hidden states, one-ulp "
-                         "input nudge) and no result line")
+                         "diagnosis (serving: free-running hidden states, "
+                         "one-ulp input nudge; training: rwkv6-3b's GEMM "
+                         "rounding, step-0 gradients under K-reordered "
+                         "GEMMs, each layer on the torch backend's own "
+                         "input and cotangent) and no result line")
+    ap.add_argument("--train-blocks-only", action="store_true",
+                    help="build, then run the [train-blocks] phase alone "
+                         "and print no result line")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to build and "
                          "measure (default: this checkout's); with "
@@ -4569,7 +5302,13 @@ def main() -> int:
         return kernels_only(smi)
     if ARGS.diagnose_recurrent:
         build_phase()
-        return diagnose_recurrent()
+        diagnose_recurrent()
+        diagnose_train()
+        return 0
+    if ARGS.train_blocks_only:
+        build_phase()
+        train_blocks_phase()
+        return 0
     build_phase()
     gemm_rows = gemm_phase()
     expert_rows = expert_gemm_phase()
@@ -4587,6 +5326,8 @@ def main() -> int:
     serve.update(hybrid_phase())
     train, train_rows, train_drow, train_summary = train_phase()
     serve.update(train)
+    blocks, block_rows, _ = train_blocks_phase()
+    serve.update(blocks)
     serve.update(dist_phase(smi, train_summary, serve["bf16:dense:hopper"]))
     # [profile]'s kernel A launches (occupancy, latency, timer check and
     # A/A block sweep under hopper) join A's entry of the kernels line
@@ -4595,7 +5336,7 @@ def main() -> int:
     print(json.dumps(kernel_line(gemm_rows, flash_rows, sparse24_rows,
                                  block24_rows, paged_rows, sweep_launches,
                                  serve, expert_rows, train_rows,
-                                 train_drow)), flush=True)
+                                 train_drow, block_rows)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

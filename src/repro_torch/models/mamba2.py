@@ -55,12 +55,16 @@ def _ssd_chunk(xh, dt, dA_cumsum, B, C, h_prev):
     decay_to_t = torch.exp(dA_cumsum)                           # (b,Lc,nh)
     y_inter = torch.einsum("bln,bhpn->blhp", C, h_prev) \
         * decay_to_t[..., None]
-    # intra-chunk: L[t,s] = exp(cum[t] - cum[s]) for s <= t
+    # intra-chunk: L[t,s] = exp(cum[t] - cum[s]) for s <= t. The pairs
+    # s > t are masked before the exp, not after it as the reference's
+    # where(causal, exp(seg), 0) does: there seg is positive and grows
+    # with the chunk (full width, 256-token chunks: past 88, where f32's
+    # exp overflows), and the gradient of a masked inf is 0 * inf = NaN.
+    # exp(-inf) is 0 with a zero gradient; the causal pairs are unchanged.
     seg = dA_cumsum[:, :, None, :] - dA_cumsum[:, None, :, :]   # (b,t,s,nh)
     causal = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool,
                                    device=xh.device))
-    L = torch.where(causal[None, :, :, None], torch.exp(seg),
-                    torch.zeros((), dtype=seg.dtype, device=seg.device))
+    L = torch.exp(seg.masked_fill(~causal[None, :, :, None], -torch.inf))
     scores = torch.einsum("bln,bmn->blm", C, B)                 # (b,t,s)
     G = scores[..., None] * L                                   # (b,t,s,nh)
     y_intra = torch.einsum("blsh,bshp->blhp", G, dt[..., None] * xh)

@@ -48,12 +48,14 @@ def _wkv_chunk(r, k, v, w, u, S):
     # intra-chunk: A[t,s] = Σ_i r_t,i k_s,i exp(cum_prev[t] - cum[s])_i for
     # s < t, with the pairwise exponent (<= 0 on causal pairs): the
     # factorized exp(cum_prev[t]) · exp(-cum[s]) overflows f32 under strong
-    # decay, the difference cannot.
+    # decay, the difference cannot. The other pairs are masked before the
+    # exp (their exponent is positive, and an inf there would make the
+    # gradient 0 * inf = NaN), as in mamba2's _ssd_chunk.
     seg = cum_prev[:, :, None] - cum[:, None, :]              # (b,t,s,nh,hd)
     strict = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool,
                                    device=r.device), diagonal=-1)
-    decay = torch.where(strict[None, :, :, None, None], torch.exp(seg),
-                        torch.zeros((), dtype=seg.dtype, device=seg.device))
+    decay = torch.exp(seg.masked_fill(~strict[None, :, :, None, None],
+                                      -torch.inf))
     A = torch.einsum("blmhi,blhi->blmh", decay * k[:, None], r)
     y_intra = torch.einsum("blmh,bmhj->blhj", A, v)
     diag = (r * u[None, None] * k).sum(dim=-1)                # (b,Lc,nh)

@@ -1,0 +1,97 @@
+"""``chip_smoke.train_launches_expected`` against the kernel calls a train
+step makes, on every block kind the card trains.
+
+The card's launch gate holds each train arm to the count this function
+derives from the code. Here one step of each reduced arch (super-layers
+checkpointed, as the full configs are) runs on the CPU with the kernel
+wrappers counted (they launch once per call on the card): kernel A's
+calls, its expert-batched calls among them, and kernel D's. The
+``[train]`` arms of llama3-8b (8 layers, B=4, S=512, three steps) keep
+the counts they had when the function knew llama's 7 linears only.
+"""
+import dataclasses
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_reduced
+from repro_torch.core import execution as tex
+from repro_torch.kernels import fp8_matmul as tfm
+from repro_torch.kernels import sparse24_matmul as tsm
+from repro_torch.models import init_params
+from repro_torch.models.layers import RuntimeCfg
+from repro_torch.optim import adamw
+from repro_torch.runtime import train_loop as ttl
+
+from torch_train_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch,spec", [
+    ("llama3-8b", "bf16:dense:hopper"),
+    ("granite-moe-3b-a800m", "bf16:dense:hopper"),
+    ("granite-moe-3b-a800m", "fp8:dense:hopper"),
+    ("granite-moe-3b-a800m", "bf16:dense:hopper_sparse24"),
+    ("granite-moe-3b-a800m", "bf16:dense:torch"),
+    ("llama4-scout-17b-a16e", "bf16:dense:hopper"),
+    ("zamba2-1.2b", "bf16:dense:hopper"),
+    ("zamba2-1.2b", "bf16:dense:hopper_sparse24"),
+    ("rwkv6-3b", "bf16:dense:hopper")])
+def test_launches_expected_counts_each_block_kind(smoke, monkeypatch, arch,
+                                                  spec):
+    calls = {"A": 0, "batched": 0, "D": 0}
+    real = {"A": tfm.fp8_matmul, "batched": tfm.fp8_matmul_batched,
+            "D": tsm.sparse24_matmul}
+
+    def count(*keys):
+        def wrapped(*a, **k):
+            for key in keys:
+                calls[key] += 1
+            return real[keys[-1]](*a, **k)
+        return wrapped
+    monkeypatch.setattr(tfm, "fp8_matmul", count("A"))
+    monkeypatch.setattr(tfm, "fp8_matmul_batched", count("A", "batched"))
+    monkeypatch.setattr(tsm, "sparse24_matmul", count("D"))
+    cfg = dataclasses.replace(get_reduced(arch), remat="full")
+    opt = adamw.AdamWConfig()
+    state = ttl.init_state(init_params(cfg, torch.Generator().manual_seed(0)),
+                           opt)
+    seq = 64
+    step = ttl.make_train_step(cfg, opt, RuntimeCfg(),
+                               policy=tex.parse_policy(spec))
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq))
+    step(state, {"inputs": tokens, "labels": tokens})
+    want = smoke.train_launches_expected(cfg, spec, 1, seq)
+    assert calls == {"A": want["launches"]["gemm"], "batched": want["batched"],
+                     "D": want["launches"]["sparse24_gemm"]}
+    assert calls["A"] + calls["D"] > 0 or spec.endswith(":torch")
+
+
+def test_train_arms_keep_their_counts(smoke):
+    """[train]'s llama3-8b arms: 7 linears per layer, each checkpointed
+    launch twice, the head twice per CE chunk (one chunk at S=512)."""
+    cfg = smoke.train_cfg()
+    got = {spec: smoke.train_launches_expected(cfg, spec, 3)
+           for spec in ("bf16:dense:hopper", "fp8:dense:hopper",
+                        "bf16:dense:torch", "bf16:sparse24:hopper",
+                        "bf16:dense:hopper_sparse24")}
+    assert got["bf16:dense:hopper"]["launches"]["gemm"] == 342
+    assert got["fp8:dense:hopper"] == got["bf16:dense:hopper"]
+    assert got["bf16:sparse24:hopper"] == got["bf16:dense:hopper"]
+    assert not any(got["bf16:dense:torch"]["launches"].values())
+    assert got["bf16:dense:hopper_sparse24"]["launches"] == {
+        "gemm": 6, "flash_attention": 0, "paged_attention": 0,
+        "sparse24_gemm": 336, "block24_gemm": 0}
+    assert all(g["batched"] == 0 for g in got.values())

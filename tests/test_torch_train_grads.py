@@ -20,18 +20,16 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import registry as jreg
-from repro_torch.core import execution as tex
 from repro_torch.core import sparsity as tsp
 from repro_torch.kernels import fp8_matmul as tfm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import registry as treg
 from repro_torch.kernels import sparse24_matmul as tsm
-from repro_torch.runtime import train_loop as ttl
 
 from torch_train_parity import (  # noqa: F401 (a fixture)
-    as_f32, batches, bridge, get_reduced, init_params, jadam, jex, jtl,
-    one_torch_thread, rts, to_jax, to_torch, torch_step)
+    GRAD_TOL, batches, bridge, check_step0_grads, get_reduced, init_params,
+    jadam, jex, jtl, one_torch_thread, rts, to_jax, to_torch, torch_step)
 from test_torch_train_step import CASES
 
 
@@ -39,23 +37,7 @@ from test_torch_train_step import CASES
 def test_step0_grads_match_jax(case):
     """f32 step-0 gradients of every leaf within 1e-5 of the leaf's
     largest (measured: 6e-7)."""
-    jspec, tspec = CASES[case]
-    cfg = get_reduced("llama3-8b")
-    jrt, trt = rts("f32")
-    jcfg, jrt = jex.apply_policy(cfg, jrt, jex.parse_policy(jspec))
-    tcfg, trt = tex.apply_policy(cfg, trt, tex.parse_policy(tspec))
-    params = init_params(jax.random.PRNGKey(0), cfg, dtype=jnp.float32)
-    batch = batches(cfg, 1)[0]
-    jg = jax.jit(jax.grad(lambda p: jtl.make_loss_fn(jcfg, jrt)(
-        p, to_jax(batch))[0]))(params)
-    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg)
-    _, tg = ttl.value_and_grad(ttl.make_loss_fn(tcfg, trt))(
-        tp, to_torch(batch))
-    for got, want in zip(jax.tree.leaves(bridge.params_to_numpy(tg, cfg)),
-                         jax.tree.leaves(as_f32(jg))):
-        assert got.shape == want.shape
-        np.testing.assert_allclose(got, want, rtol=0,
-                                   atol=1e-5 * np.abs(want).max())
+    check_step0_grads("llama3-8b", GRAD_TOL, *CASES[case])
 
 
 # -- repair 1: the 2:4-primary backend gives the weight its gradient ---------

@@ -10,8 +10,6 @@ per step against the rule the card's launch check holds. ``test_torch_train_grad
 two gradient faults this slice repaired, ``test_torch_train_archs.py``
 every reduced arch and granite's aux loss.
 """
-import jax
-import numpy as np
 import pytest
 import torch
 
@@ -22,8 +20,7 @@ from repro_torch.optim import adamw as tadam
 from repro_torch.runtime import train_loop as ttl
 
 from torch_train_parity import (  # noqa: F401 (a fixture)
-    LOSS_TOL, get_reduced, jax_run, one_torch_thread, rts, state_gaps,
-    torch_run)
+    check_three_steps, one_torch_thread)
 
 CASES = {   # name: (JAX policy, port policy)
     "torch": ("bf16:dense:jnp", "bf16:dense:torch"),
@@ -32,21 +29,12 @@ CASES = {   # name: (JAX policy, port policy)
     "hopper_sparse24": ("bf16:dense:pallas_sparse24",
                         "bf16:dense:hopper_sparse24"),
 }
-STATE_TOL = {"f32": 1e-4, "bf16": 2e-2}
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_three_steps_match_jax(case, dtype):
-    jspec, tspec = CASES[case]
-    init, jout = jax_run("llama3-8b", dtype, jspec)
-    tout = torch_run("llama3-8b", dtype, tspec, init)
-    for (tm, _), (jm, _) in zip(tout, jout):
-        assert np.isfinite(tm["loss"])
-        assert abs(tm["loss"] / jm["loss"] - 1) <= LOSS_TOL[dtype], (tm, jm)
-    gaps = state_gaps(get_reduced("llama3-8b"), tout[-1][1], jout[-1][1])
-    assert max(gaps.values()) <= STATE_TOL[dtype], gaps
-    assert int(tout[-1][1].opt.step) == int(jout[-1][1].opt.step) == 3
+    check_three_steps("llama3-8b", dtype, *CASES[case])
 
 
 @pytest.mark.parametrize("spec,want_a,want_d,seq", [

@@ -44,6 +44,13 @@ DTYPES = {"f32": (jnp.float32, torch.float32),
 # losses: f32 differs only in the order of f32 sums; bf16 at the JAX
 # package's own tolerance (test_microbatch_matches_full_batch)
 LOSS_TOL = {"f32": 1e-5, "bf16": 2e-2}
+# the state after three steps (params, moments, masters), largest |gap|
+STATE_TOL = {"f32": 1e-4, "bf16": 2e-2}
+# f32 step-0 gradients: each leaf's largest |port - JAX| over its largest
+# |entry| (the orders of f32 sums differ)
+GRAD_TOL = 1e-5
+# the kernel-backend pair whose gradients every block kind is held to
+HOPPER = ("bf16:dense:pallas", "bf16:dense:hopper")
 
 
 def opt_cfgs():
@@ -60,8 +67,16 @@ def rts(dtype: str, use_pallas: bool = False):
 
 
 def batches(cfg, n=STEPS, b=B, s=S):
+    """``SyntheticLM`` batches; an embeddings-input arch (musicgen) gets
+    seeded normal (b, s, d) f32 frames as inputs in place of the tokens."""
     data = SyntheticLM(cfg.vocab_size, s, b, seed=0)
-    return [data.batch_at(i) for i in range(n)]
+    out = [data.batch_at(i) for i in range(n)]
+    if cfg.input_mode == "embeddings":
+        rng = np.random.default_rng(0)
+        for batch in out:
+            batch["inputs"] = rng.normal(size=(b, s, cfg.d_model)).astype(
+                np.float32)
+    return out
 
 
 def to_jax(batch):
@@ -122,6 +137,51 @@ def torch_run(arch, dtype, tspec, init, grad_compress="none", microbatch=0,
     return out
 
 
+def step0_grads(arch, jspec, tspec):
+    """f32 step-0 gradients of JAX's loss under ``jspec`` and the port's
+    under ``tspec``, from one JAX init bridged bit for bit, on the first
+    batch: [(the reference's leaf path, port f32, JAX f32)]."""
+    cfg = get_reduced(arch)
+    jrt, trt = rts("f32")
+    jcfg, jrt = jex.apply_policy(cfg, jrt, jex.parse_policy(jspec))
+    tcfg, trt = tex.apply_policy(cfg, trt, tex.parse_policy(tspec))
+    params = init_params(jax.random.PRNGKey(0), cfg, dtype=jnp.float32)
+    batch = batches(cfg, 1)[0]
+    jg = jax.jit(jax.grad(lambda p: jtl.make_loss_fn(jcfg, jrt)(
+        p, to_jax(batch))[0]))(params)
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg)
+    _, tg = ttl.value_and_grad(ttl.make_loss_fn(tcfg, trt))(
+        tp, to_torch(batch))
+    paths = jax.tree_util.tree_flatten_with_path(as_f32(jg))[0]
+    got = jax.tree.leaves(bridge.params_to_numpy(tg, cfg))
+    assert len(got) == len(paths)
+    return [(jax.tree_util.keystr(path), g, w)
+            for (path, w), g in zip(paths, got)]
+
+
+def check_step0_grads(arch, tol, jspec=HOPPER[0], tspec=HOPPER[1]):
+    """Every leaf's f32 step-0 gradient within ``tol`` of its largest
+    entry."""
+    for name, got, want in step0_grads(arch, jspec, tspec):
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=tol * np.abs(want).max(),
+                                   err_msg=f"{arch} {name}")
+
+
+def check_three_steps(arch, dtype, jspec, tspec):
+    """Three steps of each package from one init: each loss within
+    LOSS_TOL, the state after them within STATE_TOL."""
+    init, jout = jax_run(arch, dtype, jspec)
+    tout = torch_run(arch, dtype, tspec, init)
+    for (tm, _), (jm, _) in zip(tout, jout):
+        assert np.isfinite(tm["loss"])
+        assert abs(tm["loss"] / jm["loss"] - 1) <= LOSS_TOL[dtype], (tm, jm)
+    gaps = state_gaps(get_reduced(arch), tout[-1][1], jout[-1][1])
+    assert max(gaps.values()) <= STATE_TOL[dtype], gaps
+    assert int(tout[-1][1].opt.step) == int(jout[-1][1].opt.step) == 3
+
+
 def state_gaps(cfg, tstate, jstate):
     """Largest |port - JAX| per part of the state (params, mu, nu,
     master), over every leaf, in f32."""
@@ -135,3 +195,31 @@ def state_gaps(cfg, tstate, jstate):
         assert len(tl) == len(jl)
         gaps[name] = max(float(np.max(np.abs(a - b))) for a, b in zip(tl, jl))
     return gaps
+
+
+def chunk_grads(port_fn, jax_fn, args, seed=0):
+    """Gradients of a recurrence chunk (``args`` numpy f32, the chunk's
+    outputs (y, state)) with respect to every argument, under a seeded
+    random cotangent: (the port's in f32, the port's in float64, JAX's in
+    f32), each a list of numpy arrays."""
+    rng = np.random.default_rng(seed)
+
+    def port(dtype):
+        ts = [torch.from_numpy(a).to(dtype).requires_grad_(True)
+              for a in args]
+        outs = port_fn(*ts)
+        gs = [torch.from_numpy(rng.normal(size=o.shape)).to(dtype)
+              for o in outs]
+        return [g.double().numpy() for g in torch.autograd.grad(
+            sum((o * g).sum() for o, g in zip(outs, gs)), ts)]
+
+    p32 = port(torch.float32)
+    rng = np.random.default_rng(seed)
+    p64 = port(torch.float64)
+    rng = np.random.default_rng(seed)
+    shapes = [o.shape for o in jax_fn(*map(jnp.asarray, args))]
+    gs = [jnp.asarray(rng.normal(size=s).astype(np.float32)) for s in shapes]
+    jg = jax.grad(lambda *a: sum(jnp.sum(o * g) for o, g in zip(
+        jax_fn(*a), gs)), argnums=tuple(range(len(args))))(
+        *map(jnp.asarray, args))
+    return p32, p64, [np.asarray(g, np.float64) for g in jg]
