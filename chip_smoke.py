@@ -17,8 +17,17 @@ first differ from the hopper run's only at a near-tie (top-2 margin under
 twice LOGIT_TOL). ``bf16:dense:hopper`` is served a second time from a
 paged cache (32 pages of 16 rows, a quarter of the dense cache), whose
 greedy tokens must equal the dense run's exactly. A profiled decode step
-gives the device's busy time and idle share. Then speculative decoding
-(``ServeSession(speculative=...)``, ``bf16:dense:hopper`` verify) in three
+gives the device's busy time and idle share. ``[sample]`` serves the same
+requests under ``bf16:dense:hopper`` at temperature 0.7 from seed 0
+(``core/prng.py``'s threefry2x32 run on the card, its bits held to the
+CPU's bit for bit): dense, where every admission's and decode step's
+token must be the argmax of the torch backend's logits, teacher forced on
+a copy of the same state, over T plus the step's own Gumbel draw unless
+their top two lie within LOGIT_TOL / T; paged, whose tokens must equal
+the dense run's; launches equal to the greedy runs'; the refusal of
+``speculative=``; and the sampler's kernels and ms per step. Then
+speculative decoding (``ServeSession(speculative=...)``,
+``bf16:dense:hopper`` verify) in three
 arms, a bf16 draft (k=4, every draft accepted), an ``fp8:dense:hopper``
 draft (k=4, kernel A in e4m3) and, paged, an ``fp8:sparse24:hopper`` draft
 (k=2, kernel D), each with greedy tokens equal to the plain run's and its
@@ -1819,23 +1828,46 @@ def run_times(tag, run) -> dict:
             "tok_s": n_tok / run["wall_s"], "wall_s": run["wall_s"]}
 
 
-def drive(sess, requests, twin=None, after_first_decode=None):
+def perturbed(sess, logits):
+    """The logits a sampled session's latest draw ranked: ``logits / T``
+    plus the Gumbel noise of its key (``sess.last_key``) over their whole
+    shape; a greedy session's logits as they are."""
+    from repro_torch.core import prng
+    if not sess.temperature > 0:
+        return logits
+    return logits.float() / sess.temperature + prng.gumbel(
+        sess.last_key, logits.shape, logits.device)
+
+
+def drive(sess, requests, twin=None, after_first_decode=None, teacher=None):
     """Serve ``requests`` the way ``ServeSession.run`` does, one admission
     and one decode step at a time, timing each (host clock around work
     that ends in a device synchronise) and keeping what the comparison
     needs: the first prefill's and first decode's logits, and the top-2
-    margin behind every token. ``twin(params, tokens, caches, pos)`` is
+    margin behind every token (of the perturbed logits, ``perturbed``,
+    when the session samples). ``twin(params, tokens, caches, pos)`` is
     run on a copy of the state the first decode step starts from, so its
     logits compare with that step's on identical inputs;
-    ``after_first_decode(sess)`` is called once, after that step."""
+    ``after_first_decode(sess)`` is called once, after that step.
+    ``teacher = (prefill_twin(params, prompt), step_twin(params, tokens,
+    caches, pos))`` returns the logits of another backend on the inputs of
+    every admission and every decode step (a copy of the state, out of
+    the timed region): per token, ``run["teacher"]`` keeps the session's
+    token, the argmax of the teacher's perturbed logits under the same
+    draw, and their top-2 margin."""
     import numpy as np
     import torch
     for r in requests:
         sess.submit(r)
     first = {}
     margins = {}
+    taught = []
     prefill_s, decode_s = [], []
     t_start = time.perf_counter()
+
+    def teach(uid, n, tok, row):
+        taught.append((uid, n, tok, int(torch.argmax(row)), _margin(row)))
+
     while sess.queue or sess.n_active:
         while sess.queue and sess.can_admit(sess.queue[0]):
             req = sess.queue.pop(0)
@@ -1844,16 +1876,24 @@ def drive(sess, requests, twin=None, after_first_decode=None):
             torch.cuda.synchronize()
             prefill_s.append(time.perf_counter() - t0)
             first.setdefault("prefill", sess.last_logits[0].float().clone())
-            margins[(req.uid, 0)] = _margin(sess.last_logits[0])
+            margins[(req.uid, 0)] = _margin(perturbed(sess,
+                                                      sess.last_logits[0]))
+            if teacher is not None:
+                prompt = torch.as_tensor(req.prompt.astype(np.int64),
+                                         device=sess.device)[None]
+                teach(req.uid, 0, req.out[0], perturbed(
+                    sess, teacher[0](sess.params, prompt)[0].float()))
         active = [(i, r, len(r.out)) for i, r in enumerate(sess.slots)
                   if r is not None]
         state = None
-        if twin is not None and "decode" not in first:
+        if teacher is not None or (twin is not None
+                                   and "decode" not in first):
             state = (sess.tokens.clone(),
                      [{k: v.clone() for k, v in c.items()}
                       for c in sess.caches],
                      torch.as_tensor(sess.slot_pos.astype(np.int64),
                                      device=sess.device))
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         sess.decode_once()
         torch.cuda.synchronize()
@@ -1861,16 +1901,22 @@ def drive(sess, requests, twin=None, after_first_decode=None):
         if "decode" not in first:
             first["decode"] = sess.last_logits.float().clone()
             first["decode_rows"] = [i for i, _, _ in active]
-            if state is not None:
+            if twin is not None:
                 first["decode_twin"] = twin(sess.params, *state).float()
             if after_first_decode is not None:
                 after_first_decode(sess)
+        rows = perturbed(sess, sess.last_logits)
         for i, r, n in active:
-            margins[(r.uid, n)] = _margin(sess.last_logits[i])
+            margins[(r.uid, n)] = _margin(rows[i])
+        if teacher is not None:
+            rows = perturbed(sess, teacher[1](sess.params, *state).float())
+            for i, r, n in active:
+                teach(r.uid, n, r.out[n], rows[i])
     wall = time.perf_counter() - t_start
     outs = {r.uid: list(r.out) for r in sess.completed}
     return {"outs": outs, "first": first, "margins": margins,
-            "prefill_s": prefill_s, "decode_s": decode_s, "wall_s": wall}
+            "teacher": taught, "prefill_s": prefill_s, "decode_s": decode_s,
+            "wall_s": wall}
 
 
 def serve_against_torch(cfg, params, requests, precision, tag,
@@ -1954,7 +2000,14 @@ def serve_phase():
         if precision == "bf16":
             results[PAGED_TAG] = serve_paged(params, cfg, requests, run,
                                              launches)
+            greedy_outs = run["outs"]
     torch.cuda.empty_cache()
+    results.update(serve_sample(params, cfg, requests,
+                                results["bf16:dense:hopper"],
+                                results[PAGED_TAG], greedy_outs))
+    torch.cuda.empty_cache()
+    if ARGS.sample_only:
+        return results
     results["bf16:sparse24:hopper"], packed = serve_sparse24(params, cfg,
                                                              requests)
     torch.cuda.empty_cache()
@@ -2097,6 +2150,234 @@ def serve_paged(params, cfg, requests, dense_run, dense_launches):
     res.update(profile_decode(session(), requests(),
                               res["decode_ms_per_step"]))
     return res
+
+
+SAMPLE_TAG = "bf16:dense:hopper sampled"
+SAMPLE_PAGED_TAG = "bf16:dense:hopper sampled paged"
+SAMPLE_TEMPERATURE = 0.7
+# the card's Gumbel noise against the CPU's: torch.log's last bits
+GUMBEL_TOL = 2e-6
+# beside the decode step's (SLOTS, Vp): a shape of odd size and rank 3
+SAMPLE_RAGGED = (3, 77, 999)
+SAMPLER_CALLS = 20
+SAMPLER_QUEUED = 4       # 4 x 183 launches: within the card's launch queue
+
+
+def check_sampler_bits(keys, vp) -> dict:
+    """``core/prng.py`` on the card against the CPU (held to ``jax.random``
+    by the CPU tests) under the sampled session's first keys: bits and
+    uniforms bit-equal, Gumbel noise within GUMBEL_TOL, at (SLOTS, Vp) and
+    SAMPLE_RAGGED; the step's sampler (``serve_loop.next_tokens``) on
+    seeded logits token-equal to the CPU's but at a near-tie (top-2
+    margin under 1e-5), launching none of the port's kernels."""
+    import numpy as np
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.runtime.serve_loop import next_tokens
+    gap = 0.0
+    for key in keys:
+        for shape in ((SLOTS, vp), SAMPLE_RAGGED):
+            for name, fn in (("random_bits", prng.random_bits),
+                             ("uniform", prng.uniform)):
+                card, cpu = fn(key, shape, device="cuda").cpu(), \
+                    fn(key, shape, device="cpu")
+                same = torch.equal(card, cpu) if name == "random_bits" \
+                    else bit_equal(card, cpu)
+                if not same:
+                    fail(f"[sample] prng.{name}{shape} under key "
+                         f"{key.tolist()} differs between the card and CPU")
+            g = prng.gumbel(key, shape, device="cuda").cpu()
+            gap = max(gap, float((g - prng.gumbel(key, shape, device="cpu"))
+                                 .abs().max()))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    logits = torch.randn((SLOTS, vp), generator=gen, device="cuda")
+    before = launch_counts()
+    card = next_tokens(logits, SAMPLE_TEMPERATURE, keys[0])[:, 0].cpu()
+    if launch_counts() != before:
+        fail("[sample] the sampler launched a port kernel")
+    cpu_logits = logits.cpu()
+    cpu = next_tokens(cpu_logits, SAMPLE_TEMPERATURE, keys[0])[:, 0]
+    inv = float(np.float32(1) / np.float32(SAMPLE_TEMPERATURE))
+    rows = cpu_logits * inv + prng.gumbel(keys[0], (SLOTS, vp))
+    ties = [i for i in range(SLOTS) if _margin(rows[i]) < 1e-5]
+    flips = [i for i in range(SLOTS) if card[i] != cpu[i]]
+    print(f"[sample] prng on the card under the session's first "
+          f"{len(keys)} keys at {(SLOTS, vp)} and {SAMPLE_RAGGED}: "
+          f"random_bits and uniform bit-equal to the CPU's; gumbel "
+          f"max_abs_diff={gap:.3e} (tolerance {GUMBEL_TOL}); next_tokens "
+          f"{card.tolist()} on the card, {cpu.tolist()} on the CPU "
+          f"(near-ties in rows {ties}); no port kernel launched",
+          flush=True)
+    if gap > GUMBEL_TOL:
+        fail(f"[sample] card gumbel {gap} from the CPU's, over {GUMBEL_TOL}")
+    if set(flips) - set(ties):
+        fail(f"[sample] the card's sampled tokens differ from the CPU's in "
+             f"rows {flips} (near-ties {ties})")
+    return {"gumbel_card_cpu_max_abs_diff": gap}
+
+
+def profile_sampler(vp, key) -> dict:
+    """Kernels and device ms per call of the step's token choice
+    (``serve_loop.next_tokens``) at (SLOTS, Vp), sampled and greedy. The
+    kernels are the host's launch calls (``cudaLaunchKernel``) in a
+    torch.profiler trace of SAMPLER_CALLS calls; its device records,
+    which the profiler now and then loses or adds one of in such a burst
+    of small kernels, are kept beside them. The ms are device time behind
+    a sleep (``characterization._device_s``) over SAMPLER_QUEUED calls,
+    whose launches fit the card's launch queue; CUDA events over the calls
+    (host gaps included) where the host could not get ahead, and the row
+    says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.characterization import _device_s
+    from repro_torch.runtime.serve_loop import next_tokens
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    logits = torch.randn((SLOTS, vp), generator=gen, device="cuda")
+    out = {}
+    for name, temp in (("sampler", SAMPLE_TEMPERATURE),
+                       ("greedy_choice", 0.0)):
+        args = (logits, temp, key)
+        next_tokens(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(SAMPLER_CALLS):
+                next_tokens(*args)
+            torch.cuda.synchronize()
+        launches = sum(a.count for a in prof.key_averages()
+                       if a.key.startswith("cudaLaunchKernel"))
+        out[f"{name}_kernels_per_step"] = launches / SAMPLER_CALLS
+        out[f"{name}_device_records_per_step"] = \
+            len(kernel_records(prof)) / SAMPLER_CALLS
+        try:
+            ms, timer = 1e3 * _device_s(next_tokens, args, SAMPLER_QUEUED,
+                                        logits.device), "behind a sleep"
+        except RuntimeError:
+            ms, timer = time_ms(lambda: next_tokens(*args),
+                                SAMPLER_CALLS), "cuda events"
+        out[f"{name}_ms_per_step"], out[f"{name}_timer"] = ms, timer
+    out["sampler_extra_kernels_per_step"] = \
+        out["sampler_kernels_per_step"] - \
+        out["greedy_choice_kernels_per_step"]
+    return out
+
+
+def serve_sample(params, cfg, requests, greedy, greedy_paged, greedy_outs):
+    """``[sample]``: llama3-8b at full width under ``bf16:dense:hopper``,
+    sampled at SAMPLE_TEMPERATURE from seed SEED, on ``[serve]``'s weights
+    and requests. ``greedy`` and ``greedy_paged`` are the greedy dense and
+    paged runs' results, ``greedy_outs`` the dense run's tokens. Gates:
+    the prng on the card equals the CPU's (``check_sampler_bits``); at
+    every admission and decode step the hopper session's token equals the
+    argmax of the torch backend's logits, teacher forced on a copy of the
+    same state, over T plus the step's own Gumbel draw, unless their top-2
+    margin is under LOGIT_TOL / T; the paged session's tokens equal the
+    dense session's; kernels A and B launch as often as in the greedy
+    runs, and no other kernel; a sampled session refuses
+    ``speculative=``."""
+    import torch
+    from repro_torch.core import execution as ex
+    from repro_torch.core import prng
+    from repro_torch.models.layers import RuntimeCfg
+    from repro_torch.runtime.serve_loop import (
+        ServeSession, make_prefill_step, make_serve_step)
+    t_phase = time.perf_counter()
+    temp = SAMPLE_TEMPERATURE
+    tol = LOGIT_TOL["bf16"] / temp
+
+    def session(paged=False, **kw):
+        if paged:
+            kw.update(paged=True, page_size=PAGE_SIZE, pages=PAGES)
+        return ServeSession(
+            params, cfg, batch_slots=SLOTS, max_len=MAX_LEN,
+            rt=RuntimeCfg(use_pallas=True),
+            policy=ex.parse_policy("bf16:dense:hopper"), temperature=temp,
+            seed=SEED, device="cuda", **kw)
+
+    try:
+        session(speculative={"k": 4, "draft_policy": "bf16:dense:hopper"})
+    except ValueError as e:
+        print(f"[sample] temperature {temp} with speculative=: refused "
+              f"(ValueError: {e})", flush=True)
+    else:
+        fail("[sample] a sampled session accepted speculative=")
+
+    key, keys = prng.PRNGKey(SEED), []
+    for _ in range(3):
+        key, sub = prng.split(key)
+        keys.append(sub)
+    res = check_sampler_bits(keys, cfg.padded_vocab)
+
+    torch_policy = ex.parse_policy("bf16:dense:torch")
+    torch_prefill = make_prefill_step(cfg, RuntimeCfg(), policy=torch_policy)
+    torch_step = make_serve_step(cfg, RuntimeCfg(), policy=torch_policy)
+    teacher = (lambda p, prompt: torch_prefill(p, prompt)[0],
+               lambda p, *state: torch_step(p, *state)[1])
+    hop = session()
+    zero_launch_counts()
+    run = drive(hop, requests(), teacher=teacher)
+    launches = launch_counts()
+    del hop
+    check_completed(SAMPLE_TAG, run)
+    flips = [t for t in run["teacher"] if t[2] != t[3]]
+    ties = [t for t in run["teacher"] if t[4] < tol]
+    print(f"[sample] {SAMPLE_TAG} T={temp}: {len(run['teacher'])} tokens "
+          f"({len(run['prefill_s'])} admissions, {len(run['decode_s'])} "
+          f"decode steps) against argmax(torch backend logits / T + the "
+          f"step's gumbel), teacher forced: {len(flips)} differ "
+          f"(top-2 margins {[round(t[4], 4) for t in flips]}), "
+          f"{len(ties)} near-ties under {tol:.4f}", flush=True)
+    off = [t for t in flips if t[4] >= tol]
+    if off:
+        fail(f"[sample] {SAMPLE_TAG}: tokens {[t[:2] for t in off]} differ "
+             f"from the torch backend's at margins >= {tol:.4f}")
+    print(f"[sample] {SAMPLE_TAG}: launches {launches}, greedy run's "
+          f"{greedy['launches']}", flush=True)
+    if launches != greedy["launches"]:
+        fail(f"{SAMPLE_TAG}: kernel launches {launches}, the greedy run's "
+             f"{greedy['launches']}")
+
+    pag = session(paged=True)
+    zero_launch_counts()
+    prun = drive(pag, requests())
+    plaunches = launch_counts()
+    del pag
+    check_completed(SAMPLE_PAGED_TAG, prun)
+    same = sum(prun["outs"][u] == run["outs"][u] for u in run["outs"])
+    print(f"[sample] {SAMPLE_PAGED_TAG}: sampled tokens equal to the dense "
+          f"sampled run for {same}/{N_REQUESTS} requests; launches "
+          f"{plaunches}, greedy paged run's {greedy_paged['launches']}",
+          flush=True)
+    if same != N_REQUESTS:
+        fail(f"{SAMPLE_PAGED_TAG}: sampled tokens differ from the dense run")
+    if plaunches != greedy_paged["launches"]:
+        fail(f"{SAMPLE_PAGED_TAG}: kernel launches {plaunches}, the greedy "
+             f"paged run's {greedy_paged['launches']}")
+    if run["outs"] == greedy_outs:
+        fail(f"{SAMPLE_TAG}: the sampled tokens are the greedy run's")
+
+    res.update(profile_sampler(cfg.padded_vocab, keys[0]))
+    out = {}
+    for tag, r, base, lau in ((SAMPLE_TAG, run, greedy, launches),
+                              (SAMPLE_PAGED_TAG, prun, greedy_paged,
+                               plaunches)):
+        out[tag] = dict(run_times(tag, r), launches=lau, temperature=temp,
+                        greedy_decode_ms_median=base["decode_ms_median"],
+                        greedy_decode_ms_p67=base["decode_ms_p67"])
+    out[SAMPLE_TAG].update(
+        res, teacher_tokens=len(run["teacher"]), teacher_flips=len(flips),
+        teacher_near_ties=len(ties), near_tie_margin=tol)
+    out[SAMPLE_PAGED_TAG]["tokens_equal_dense"] = same
+    prof = profile_decode(session(), requests(),
+                          out[SAMPLE_TAG]["decode_ms_per_step"])
+    out[SAMPLE_TAG].update(prof)
+    if prof.get("kernels_per_step") and greedy.get("kernels_per_step"):
+        out[SAMPLE_TAG]["step_kernels_over_greedy"] = \
+            prof["kernels_per_step"] - greedy["kernels_per_step"]
+    for tag, r in out.items():
+        print(f"[sample-time] {json.dumps(r)}", flush=True)
+    print(f"[sample] phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return out
 
 
 # The speculative run: 4 requests of 16 new tokens from prompts of these
@@ -5256,6 +5537,10 @@ def parse_args(argv):
                          "rounding, step-0 gradients under K-reordered "
                          "GEMMs, each layer on the torch backend's own "
                          "input and cotangent) and no result line")
+    ap.add_argument("--sample-only", action="store_true",
+                    help="build, then run [serve] up to its [sample] phase "
+                         "(llama3-8b greedy dense, paged and fp8, then "
+                         "sampled) and print no result line")
     ap.add_argument("--train-blocks-only", action="store_true",
                     help="build, then run the [train-blocks] phase alone "
                          "and print no result line")
@@ -5308,6 +5593,10 @@ def main() -> int:
     if ARGS.train_blocks_only:
         build_phase()
         train_blocks_phase()
+        return 0
+    if ARGS.sample_only:
+        build_phase()
+        serve_phase()
         return 0
     build_phase()
     gemm_rows = gemm_phase()

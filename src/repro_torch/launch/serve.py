@@ -17,8 +17,10 @@ once and sends every packed linear through the packed 2:4 GEMM kernel;
 names the backend it may use); with ``--autotune`` it decides from the
 calibrated artifact of ``launch/profile.py`` (``$REPRO_AUTOTUNE_DIR`` or
 ``build/repro_torch_autotune``). ``--paged`` serves from a pool of
-``--page-size``-row pages with per-slot page tables; its greedy tokens
-equal the dense cache's.
+``--page-size``-row pages with per-slot page tables; its tokens equal
+the dense cache's. ``--temperature T`` samples (0, the default, is
+greedy), with ``jax.random``'s draws from ``--seed``
+(``core/prng.py``).
 
 The control plane (``runtime/server.py``) is configured by a serialized
 ``ServingSpec`` (``--spec spec.json``) or by the shorthand flags
@@ -60,6 +62,7 @@ def build_spec(args, policy):
         placement=args.placement,
         batch_slots=args.slots,
         max_len=args.max_len,
+        temperature=args.temperature,
         seed=args.seed,
         policy=policy,
         migration=MigrationSpec(enabled=args.migrate),
@@ -110,6 +113,9 @@ def make_parser() -> argparse.ArgumentParser:
                          "equivalent capacity, slots * max_len/page_size)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sample with this temperature (0: greedy); the "
+                         "draws reproduce jax.random's from --seed")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tenants", type=int, default=1,
                     help="number of tenant queues; >1 routes through the "
@@ -297,11 +303,12 @@ def main(argv=None):
         print(f"[serve] {len(done)}/{args.requests} requests, "
               f"{total_new} tokens in {dt:.1f}s "
               f"({total_new / max(dt, 1e-9):.1f} tok/s aggregate) "
-              f"on {device}")
+              f"on {device}, temperature {spec.temperature}")
         return 0
 
     sess = ServeSession(params, cfg, batch_slots=args.slots,
-                        max_len=args.max_len, rt=rt, seed=args.seed,
+                        max_len=args.max_len, rt=rt,
+                        temperature=args.temperature, seed=args.seed,
                         policy=policy, auto_backend=backend,
                         verbose_policy=True, telemetry=tracer,
                         paged=args.paged, page_size=args.page_size,
@@ -339,7 +346,7 @@ def main(argv=None):
     total_new = sum(len(r.out) for r in done)
     print(f"[serve] {len(done)}/{args.requests} requests, {total_new} tokens "
           f"in {dt:.1f}s ({total_new / max(dt, 1e-9):.1f} tok/s aggregate) "
-          f"on {device}")
+          f"on {device}, temperature {args.temperature}")
     for r in done[:4]:
         print(f"  req {r.uid}: {len(r.out)} new tokens, first 8: {r.out[:8]}")
     if args.telemetry and tracer is not None:

@@ -49,11 +49,19 @@ changes only in the join, after the host has waited on the lane, so the
 token stream is the same whatever other lanes do in between. Nothing
 between dispatch and join reads a device tensor on the host.
 
+With ``temperature > 0`` the session samples, as the reference does,
+from ``jax.random``'s stream, reproduced by :mod:`repro_torch.core.prng`:
+its key starts as ``PRNGKey(seed)`` and is split on the host once per
+sampled admission and once per decode dispatch (greedy sessions split
+there too), so the dispatch/join split and the runtime's lanes consume the
+key chain in the reference's order. Each draw is a Gumbel perturbation of
+every slot's row over the padded vocabulary, made on the logits' device
+inside the step. An imported slot samples from the importing session's
+chain. Sampled tokens equal the reference's except where the two best
+perturbed logits lie within the last bits of ``log``.
+
 Where the reference donates the cache to its jitted helpers, the port
-updates the K/V tensors in place. Not ported: sampling (``temperature >
-0``; the port serves greedy, the only mode whose tokens can be held
-against the reference). ``seed`` is accepted for the reference's
-signature; greedy decode draws nothing from it.
+updates the K/V tensors in place.
 """
 from __future__ import annotations
 
@@ -69,6 +77,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import concurrency as cc
 from repro_torch.core import execution as ex
 from repro_torch.core import paging
+from repro_torch.core import prng
 from repro_torch.core import speculative as spv
 from repro_torch.kernels import paged_attention  # noqa: F401 (hopper_paged)
 from repro_torch.models.layers import DEFAULT_RT, RuntimeCfg
@@ -89,34 +98,51 @@ def make_prefill_step(cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT,
     return prefill_step
 
 
+def next_tokens(logits: torch.Tensor, temperature: float, rng=None):
+    """The step's next tokens (B, 1) int32: argmax, or with ``temperature
+    > 0`` a categorical draw under key ``rng`` over every row and the
+    padded vocabulary. The reference's jitted step divides by the constant
+    ``temperature``, which XLA compiles into a product with its float32
+    reciprocal; so does this."""
+    if temperature > 0:
+        inv = float(np.float32(1) / np.float32(temperature))
+        nxt = prng.categorical(rng, logits * inv)
+    else:
+        nxt = torch.argmax(logits, dim=-1)
+    return nxt[:, None].to(torch.int32)
+
+
 def make_serve_step(cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT,
+                    temperature: float = 0.0,
                     policy: Optional[ex.ExecutionPolicy] = None):
-    """serve_step(params, tokens (B,1), caches, pos) -> (next_tokens (B,1),
-    logits, caches), greedy. ``pos`` is a scalar (lockstep) or a (B,)
-    vector (continuous batching: per-slot positions)."""
+    """serve_step(params, tokens (B,1), caches, pos, rng) -> (next_tokens
+    (B,1), logits, caches). ``pos`` is a scalar (lockstep) or a (B,)
+    vector (continuous batching: per-slot positions); ``rng`` is a
+    :mod:`~repro_torch.core.prng` key, which greedy decode (``temperature
+    == 0``) does not need."""
     if policy is not None:
         cfg, rt = ex.apply_policy(cfg, rt, policy)
 
-    def serve_step(params, tokens, caches, pos):
+    def serve_step(params, tokens, caches, pos, rng=None):
         logits, caches = decode_step(params, tokens, caches, pos, cfg, rt)
-        nxt = torch.argmax(logits, dim=-1)
-        return nxt[:, None].to(torch.int32), logits, caches
+        return next_tokens(logits, temperature, rng), logits, caches
     return serve_step
 
 
 def make_paged_serve_step(cfg: ArchConfig, rt: RuntimeCfg = DEFAULT_RT,
+                          temperature: float = 0.0,
                           policy: Optional[ex.ExecutionPolicy] = None):
     """``make_serve_step`` over the paged cache layout: the step takes an
     extra ``page_map`` (B, max_pages) int32 operand (``-1`` =
-    unallocated). Greedy, like the dense step, and equal to it."""
+    unallocated) before ``rng``. Its logits equal the dense step's, so
+    its tokens do too."""
     if policy is not None:
         cfg, rt = ex.apply_policy(cfg, rt, policy)
 
-    def paged_serve_step(params, tokens, caches, pos, page_map):
+    def paged_serve_step(params, tokens, caches, pos, page_map, rng=None):
         logits, caches = paged_decode_step(params, tokens, caches, pos,
                                            page_map, cfg, rt)
-        nxt = torch.argmax(logits, dim=-1)
-        return nxt[:, None].to(torch.int32), logits, caches
+        return next_tokens(logits, temperature, rng), logits, caches
     return paged_serve_step
 
 
@@ -357,7 +383,8 @@ class ServeSession:
     API is ``can_admit(req)`` → ``admit(req)`` → ``decode_once()`` (or
     ``dispatch_decode(lane)`` … ``join_decode(ticket)``). ``last_logits``
     holds the logits of the latest prefill (1, Vp), decode step (slots, Vp)
-    or speculative verify (slots, k, Vp).
+    or speculative verify (slots, k, Vp); ``last_key`` the key split off
+    for the latest sampled admission or decode dispatch.
 
     ``policy`` is an :class:`~repro_torch.core.execution.ExecutionPolicy`,
     a policy spec string, ``"auto"`` (resolved by the occupancy advisor
@@ -383,10 +410,6 @@ class ServeSession:
                 "speculative decoding is greedy-only (temperature == 0): "
                 "verify-by-argmax has no exact acceptance rule for "
                 f"sampled decode (temperature={temperature})")
-        if temperature > 0:
-            raise NotImplementedError(
-                "sampled decode (temperature > 0) is not ported; the port "
-                "serves greedy")
         self.device = resolve_device(device)
         if policy == "auto":
             # paper-§9.2 resolution at session construction: the dominant
@@ -412,6 +435,7 @@ class ServeSession:
         self.batch_slots = batch_slots
         self.max_len = max_len
         self.eos_id = eos_id
+        self.temperature = temperature
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.paged = bool(paged)
         if self.paged:
@@ -430,23 +454,25 @@ class ServeSession:
                                            device=self.device)
             self._pooled = [k in PAGED_KINDS for k in layer_kinds(cfg)]
             self._sync_page_map()
-            self.step_fn = make_paged_serve_step(cfg, rt)
+            self.step_fn = make_paged_serve_step(cfg, rt, temperature)
         else:
             self.page_size, self.pages = 0, 0
             self.pager = None
             self._pooled = [False] * len(layer_kinds(cfg))
             self.caches = init_cache(cfg, batch_slots, max_len,
                                      device=self.device)
-            self.step_fn = make_serve_step(cfg, rt)
+            self.step_fn = make_serve_step(cfg, rt, temperature)
         self.prefill_fn = make_prefill_step(cfg, rt)
         # next write position per slot (slot-local: every request starts
         # at position 0 regardless of when it was admitted)
         self.slot_pos = np.zeros((batch_slots,), np.int32)
         self.tokens = torch.zeros((batch_slots, 1), dtype=torch.int32,
                                   device=self.device)
+        self.rng = prng.PRNGKey(seed)
         self.queue: List[Request] = []
         self.completed: List[Request] = []
         self.last_logits: Optional[torch.Tensor] = None
+        self.last_key: Optional[np.ndarray] = None
         self._inflight: Optional[DecodeTicket] = None
         self._lane: Optional[cc.ExecutionLane] = None
         self._draft_lane: Optional[cc.ExecutionLane] = None
@@ -520,7 +546,9 @@ class ServeSession:
 
     def admit(self, req: Request) -> int:
         """Bulk-prefill ``req`` into a free slot and take its first output
-        token (greedy) from the prefill logits. Active slots do not step.
+        token from the prefill logits (argmax, or with ``temperature > 0``
+        a draw under a key split off the session's). Active slots do not
+        step.
         Returns the slot index (the request may already be done if
         ``max_new == 1``). Paged: raises ``PagesExhausted`` if the pool
         cannot hold the prompt plus one position (gate on
@@ -540,7 +568,15 @@ class ServeSession:
         t0 = time.perf_counter()
         with self._policy_scope():
             logits, pcaches = self.prefill_fn(self.params, prompt)
-        tok = int(torch.argmax(logits[0]))      # waits for the prefill
+        if self.temperature > 0:
+            # the reference divides here outside its jitted step: a true
+            # float32 division (a device scalar: CUDA would multiply by
+            # the reciprocal of a host one)
+            self.rng, self.last_key = prng.split(self.rng)
+            scaled = logits[0] / logits.new_full((), self.temperature)
+            tok = int(prng.categorical(self.last_key, scaled))
+        else:
+            tok = int(torch.argmax(logits[0]))  # waits for the prefill
         if self.tracer is not None:
             self.tracer.record(
                 "prefill", m=lp, k=self.cfg.d_model, n=self.cfg.d_ff,
@@ -632,7 +668,8 @@ class ServeSession:
         """Resume an exported in-flight request in a free slot of this
         session. Both sessions must share the cache layout (same config and
         ``max_len``, and the same page size when paged; checked leaf by
-        leaf). Returns the slot index."""
+        leaf). Sampled decode goes on under this session's key chain.
+        Returns the slot index."""
         slot = next((i for i, s in enumerate(self.slots) if s is None), None)
         if slot is None:
             raise RuntimeError("import_slot() with no free slot")
@@ -787,6 +824,9 @@ class ServeSession:
             oom_done = self._grow_pages(k)
             if self.n_active == 0:
                 return DecodeTicket(handle=None, oom_done=oom_done)
+        # one split per dispatched step, sampled or not, as the reference
+        self.rng, sub = prng.split(self.rng)
+        self.last_key = sub
         lane = lane if lane is not None else self._default_lane()
         t0 = time.perf_counter()
         # staged from host memory at once; slot_pos changes only in the join
@@ -828,7 +868,7 @@ class ServeSession:
         with self._policy_scope():
             handle = lane.dispatch(
                 lambda: self.step_fn(self.params, tokens, caches, posv,
-                                     *paged),
+                                     *paged, sub),
                 label="decode", overlap_group=overlap_group)
         ticket = DecodeTicket(handle=handle, oom_done=oom_done,
                               lane=lane.name, overlap_group=overlap_group,

@@ -487,7 +487,9 @@ class ServingRuntime:
     so under greedy decoding a tenant's token stream is independent of
     *which* partition serves it and of who shares the node — including
     across a live migration between execution-compatible partitions
-    (tested token-for-token).
+    (tested token-for-token). With ``temperature > 0`` each partition's
+    session samples from its own key chain, started from ``seed``, as in
+    the reference.
 
     ``policy=`` / ``quota=`` are legacy programmatic overrides (uniform
     policy object, quota instance or per-partition sequence) used by the

@@ -600,3 +600,63 @@ def test_cuda_speculative_draft_on_its_own_lane_gives_the_plain_stream(
     assert {r.uid: r.out for r in spec.completed} == \
         {r.uid: r.out for r in plain.completed}
     assert spec.spec_totals[""]["steps"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_sampler_equals_the_cpu():
+    """``core/prng.py`` on the card at a decode step's (slots, Vp) of
+    llama3-8b: bits and uniforms bit-equal to the CPU's (which the CPU
+    tests hold to ``jax.random``), categorical draws and the step's token
+    choice the CPU's index but at a near-tie (top-2 margin under 1e-5 of
+    the perturbed logits), Gumbel noise within torch.log's last bits."""
+    _need_cuda()
+    import numpy as np
+    from repro_torch.core import prng
+    from repro_torch.runtime.serve_loop import next_tokens
+    key = prng.split(prng.PRNGKey(0))[1]
+    shape = (4, 128256)
+    assert torch.equal(prng.random_bits(key, shape, "cuda").cpu(),
+                       prng.random_bits(key, shape, "cpu"))
+    assert _same_bits(prng.uniform(key, shape, device="cuda").cpu(),
+                      prng.uniform(key, shape, device="cpu"))
+    g_cpu = prng.gumbel(key, shape, "cpu")
+    assert (prng.gumbel(key, shape, "cuda").cpu() - g_cpu).abs().max() \
+        <= 2e-6
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn(shape, generator=gen, device="cuda") * 3
+    inv = float(np.float32(1) / np.float32(0.7))
+    for got, want, rows in (
+            (prng.categorical(key, logits), prng.categorical(
+                key, logits.cpu()), logits.cpu() + g_cpu),
+            (next_tokens(logits, 0.7, key)[:, 0],
+             next_tokens(logits.cpu(), 0.7, key)[:, 0],
+             logits.cpu() * inv + g_cpu)):
+        top2 = torch.topk(rows, 2).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-5
+        assert torch.equal(got.cpu()[clear], want[clear])
+
+
+@pytest.mark.cuda
+def test_cuda_sampled_sessions_on_two_lanes_keep_their_tokens():
+    """Two sampled sessions decoding at once on lanes of their own draw
+    the tokens of the two decoding one after the other: each key is split
+    on the host at dispatch and its draw made on the lane's stream."""
+    _need_cuda()
+    from repro_torch.core import concurrency as tcc
+    cfg, params, rt = _lane_model()
+    kw = [dict(temperature=0.7, seed=s) for s in (1, 2)]
+    alone = []
+    for uids, k in zip(((0, 1), (2, 3)), kw):
+        sess = _lane_session(cfg, params, rt, uids, **k)
+        sess.run()
+        alone.append({r.uid: r.out for r in sess.completed})
+    a = _lane_session(cfg, params, rt, (0, 1), **kw[0])
+    b = _lane_session(cfg, params, rt, (2, 3), **kw[1])
+    lanes = [tcc.ExecutionLane(f"lane{i}") for i in range(2)]
+    while a.n_active or b.n_active:
+        tickets = [s.dispatch_decode(ln, overlap_group=0)
+                   for s, ln in zip((a, b), lanes)]
+        for s, t in zip((a, b), tickets):
+            s.join_decode(t)
+    for want, sess in zip(alone, (a, b)):
+        assert {r.uid: r.out for r in sess.completed} == want

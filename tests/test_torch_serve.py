@@ -119,15 +119,6 @@ def test_session_needs_a_device_on_a_cpu_only_machine():
         tsl.ServeSession(tparams, CFG, batch_slots=1, max_len=8)
 
 
-def test_unported_session_modes_raise():
-    """Sampling is not ported (the policy resolver is:
-    test_torch_runtime_policy.py; the paged cache and the slot handoff:
-    test_torch_serve_paged.py; speculation: test_torch_speculative.py)."""
-    with pytest.raises(NotImplementedError):
-        tsl.ServeSession({}, CFG, batch_slots=1, max_len=8, device="cpu",
-                         temperature=0.7)
-
-
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, found by walking the package, and
     chip_smoke.py import neither JAX nor anything of ``repro``."""
