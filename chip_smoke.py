@@ -87,8 +87,13 @@ layers of window 1024 : 1 global, head_dim 256) with one 1040-token
 prompt that rolls the windows, dense and paged within LOGIT_TOL of the
 torch backend, and a bf16-draft speculative session whose tokens equal
 the plain run's; kernel B serves the global layers' prefill at hd 256.
-Both check their launches exactly, and the paged runs equal the dense
-runs bit for bit.
+``[moe-top1]`` serves llama4-scout-17b-a16e at its published width with 8
+of its 48 layers (16 experts, top 1, and a shared expert whose three
+GEMMs run on plain kernel-A launches beside the expert-batched ones;
+kernel B at 40 query heads over 8 kv heads) under ``bf16:dense:hopper``
+dense and paged, held sublayer by sublayer as ``[moe]`` is. Each checks
+its launches exactly, and the paged runs equal the dense runs bit for
+bit.
 
 Then the recurrent block kinds at their published sizes. ``[ssm]``
 serves rwkv6-3b (32 rwkv6 layers, d 2560, 40 heads of 64; one prompt of
@@ -112,10 +117,10 @@ Then ``[train]``: llama3-8b at full width with 8 of its 32 layers
 state), B=4, S=512, ``SyntheticLM`` batches, through
 ``runtime/train_loop.make_train_step``: three steps under
 ``bf16:dense:hopper`` and ``fp8:dense:hopper`` against the ``torch``
-backend from copies of one init (the losses and, in bf16, each leaf's
-step-0 grad norm within stated tolerances; in fp8 each sublayer of the
-step-0 forward, teacher forced, within a gap that a bf16 forward in its
-place must exceed), one under
+backend, each arm drawing one init from the seed (the losses and, in
+bf16, each leaf's step-0 grad norm within stated tolerances; in fp8
+each sublayer of the step-0 forward, teacher forced, within a gap that
+a bf16 forward in its place must exceed), one under
 ``bf16:sparse24:hopper`` (STE, kernel A) and one under
 ``bf16:dense:hopper_sparse24`` (kernel D, the weight given its masked
 gradient), each with its launches as the code implies (every checkpointed
@@ -128,14 +133,22 @@ deterministic algorithms; and the
 refusal of autograd through every kernel entry point on the card.
 
 Then ``[train-blocks]``: the other block kinds through the same training
-path at full width, B=4, S=512, three steps under ``bf16:dense:hopper``
-(one step profiled) and ``bf16:dense:torch`` from copies of one init:
+path at full width, three steps under ``bf16:dense:hopper`` (one step
+profiled) and ``bf16:dense:torch``, each arm from its own init drawn
+from the seed (the same bits, held by a checksum): at B=4, S=512,
 granite-moe-3b-a800m with 8 of its 32 layers (every expert GEMM one
 launch of kernel A over the 40 experts, its backward the per-expert
 torch reference; the router, capacity dispatch and aux loss under
 autograd), zamba2-1.2b whole (38 mamba2 layers, six calls of the shared
-block, the hybrid tail outside the checkpoints) and rwkv6-3b with 8 of
-its 32 layers. Each arm's launches exactly as the code implies (kernel
+block, the hybrid tail outside the checkpoints), rwkv6-3b with 8 of its
+32 layers, musicgen-medium whole (seeded normal frames as its
+embeddings input, the token table's gradient exactly zero) and
+llama4-scout-17b-a16e with 1 of its 48 layers (top-1 routing at
+capacity 80 per group, the shared expert; AdamW's moments in bf16, the
+reference's own option, as f32 ones do not fit); and gemma3-12b's one 5
+local : 1 global super-layer at B=1, S=2048, where the local layers'
+window of 1024 masks (a window-0 control must differ from the windowed
+sublayer). Each arm's launches exactly as the code implies (kernel
 A's expert-batched ones too); losses (granite's aux loss too) and the
 step-0 grad norms of every leaf but a MoE layer's router and experts
 within ``[train]``'s tolerances, a recurrent stack that misses them held
@@ -168,7 +181,7 @@ beside SDPA, whose CUDA-event means are kept as a second column.
 ``--kernels-only [--src DIR/src]`` runs just that, on this checkout or
 another, so that two commits' kernels can be timed by the same code in
 one call; ``--train-blocks-only`` builds and runs ``[train-blocks]``
-alone.
+alone, ``--moe-top1-only`` ``[moe-top1]``.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -562,28 +575,35 @@ def scaled_mm_ms(x_q, w_q, out_dtype, iters):
 # Kernel A, expert-batched: a MoE layer's per-expert GEMMs in one launch
 # ---------------------------------------------------------------------------
 
-# (label, E, M, K, N): granite-moe-3b-a800m's expert gate/up (d 1536 ->
-# expert d_ff 512) and down GEMMs at a 4-slot decode step (capacity M =
-# ceil(4 * 8 * 1.25 / 40) = 1 per expert) and at a 128-token prefill
-# (capacity 32)
-EXPERT_SHAPES = (
-    ("moe_decode_gate_up", 40, 1, 1536, 512),
-    ("moe_decode_down", 40, 1, 512, 1536),
-    ("moe_prefill_gate_up", 40, 32, 1536, 512),
-    ("moe_prefill_down", 40, 32, 512, 1536),
-)
+# (label, E, M, K, N, types): granite-moe-3b-a800m's expert gate/up (d
+# 1536 -> expert d_ff 512) and down GEMMs at a 4-slot decode step
+# (capacity M = ceil(4 * 8 * 1.25 / 40) = 1 per expert) and at a 128-token
+# prefill (capacity 32), in the two types [moe] serves; llama4-scout's (d
+# 5120 -> expert d_ff 8192, 16 experts, top 1) at decode (capacity
+# ceil(4 * 1.25 / 16) = 1) and at a 128-token prefill (ceil(128 * 1.25 /
+# 16) = 10), in bf16, the type [moe-top1] serves
 EXPERT_TYPES = ("bf16", "e4m3")
+EXPERT_SHAPES = (
+    ("moe_decode_gate_up", 40, 1, 1536, 512, EXPERT_TYPES),
+    ("moe_decode_down", 40, 1, 512, 1536, EXPERT_TYPES),
+    ("moe_prefill_gate_up", 40, 32, 1536, 512, EXPERT_TYPES),
+    ("moe_prefill_down", 40, 32, 512, 1536, EXPERT_TYPES),
+    ("top1_decode_gate_up", 16, 1, 5120, 8192, ("bf16",)),
+    ("top1_decode_down", 16, 1, 8192, 5120, ("bf16",)),
+    ("top1_prefill_gate_up", 16, 10, 5120, 8192, ("bf16",)),
+    ("top1_prefill_down", 16, 10, 8192, 5120, ("bf16",)),
+)
 
 
 def expert_gemm_phase():
     """Kernel A's expert-batched entry (``fp8_matmul_batched``) at the
-    [moe] phase's shapes, bf16 -> bf16 and e4m3 -> f32 as the main path
-    runs it, with a quarter of the experts given no token (zero rows):
-    against its plain twin (the per-expert loop of the plain GEMM) under
-    GEMM_REL_TOL, exact zeros for the empty experts, a bit-equal repeat,
-    one launch per call; timed with its bound (every expert's weight read
-    once) and ``torch.bmm`` on the same bf16 operands (no batched
-    library call takes e4m3)."""
+    [moe] and [moe-top1] phases' shapes, bf16 -> bf16 and e4m3 -> f32 as the
+    main path runs it, with a quarter of the experts given no token (zero
+    rows): against its plain twin (the per-expert loop of the plain GEMM) under
+    GEMM_REL_TOL, exact zeros for the empty experts, a bit-equal repeat, one
+    launch per call; timed with its bound (every expert's weight read once) and
+    ``torch.bmm`` on the same bf16 operands (no batched library call takes
+    e4m3)."""
     import torch
     from repro_torch.kernels import fp8_matmul as fm
     if not hasattr(fm, "fp8_matmul_batched"):
@@ -592,9 +612,9 @@ def expert_gemm_phase():
         return []
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rows = []
-    for label, E, M, K, N in EXPERT_SHAPES:
+    for label, E, M, K, N, types in EXPERT_SHAPES:
         plan = plan_note(M, N, K, "gemm", E)
-        for kind in EXPERT_TYPES:
+        for kind in types:
             x = torch.randn((E, M, K), generator=gen, device="cuda")
             x[::4] = 0                               # experts with no token
             w = torch.randn((E, K, N), generator=gen, device="cuda") \
@@ -660,11 +680,13 @@ def expert_gemm_phase():
 
 # B, h, kvh, S, hd: llama3-8b's prefills, gemma3-12b's global layers
 # (head_dim 256) at a 128-token prompt and at the [local] phase's long one,
-# and zamba2-1.2b's shared attention (32 heads of 64, group 1) at a
-# 128-token prompt and at the [hybrid] phase's long one
+# zamba2-1.2b's shared attention (32 heads of 64, group 1) at a 128-token
+# prompt and at the [hybrid] phase's long one, and llama4-scout's prefills
+# (40 query heads over 8 kv heads: group 5)
 FLASH_SHAPES = ((1, 32, 8, 128, 128), (1, 32, 8, 77, 128),
                 (1, 16, 8, 128, 256), (1, 16, 8, 1040, 256),
-                (1, 32, 32, 128, 64), (1, 32, 32, 512, 64))
+                (1, 32, 32, 128, 64), (1, 32, 32, 512, 64),
+                (1, 40, 8, 128, 128), (1, 40, 8, 77, 128))
 # kernel-vs-plain tolerance (absolute, on bf16 outputs of magnitude <= ~3):
 # f32 online softmax against a full softmax, then one bf16 rounding.
 FLASH_TOL = 2e-2
@@ -734,7 +756,8 @@ def flash_phase():
             lambda: fa.flash_attention_plain(q, k, v, causal=True), 20)
         n_bytes = 2 * (2 * B * h * S * hd + 2 * B * kvh * S * hd)
         bms, by = bound_ms(n_bytes, flash_flops(B, h, S, hd), "bf16")
-        label = f"prefill_S{S}" + (f"_hd{hd}" if hd != 128 else "")
+        label = f"prefill_S{S}" + (f"_hd{hd}" if hd != 128 else "") \
+            + (f"_h{h}" if hd == 128 and h != 32 else "")
         row = {"label": label, "B": B, "h": h, "kvh": kvh, "S": S,
                "hd": hd, "max_abs_err": err, "ms": ms,
                "event_ms": time_ms(lambda: kernel(q, k, v), 100),
@@ -3376,12 +3399,18 @@ def diagnose_recurrent() -> None:
         torch.cuda.empty_cache()
 
 
-def block_model(arch):
-    """A full-size config's random weights on the card, from the seed."""
+def block_model(arch, layers=None):
+    """A full-size config's random weights on the card, from the seed;
+    with ``layers``, its first ``layers`` layers only (a depth cut)."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params
-    cfg = get_arch(arch)
+    full = get_arch(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    cut = "no depth cut" if layers is None else \
+        f"depth cut from {full.num_layers}"
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_params(cfg, gen, device="cuda")
@@ -3395,8 +3424,8 @@ def block_model(arch):
         ssm = (f", rwkv6: {cfg.d_model // cfg.ssm_head_dim} heads of "
                f"{cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}")
     print(f"[{arch}] {cfg.num_layers} layers {cfg.superlayer_pattern} x "
-          f"{cfg.num_superlayers} + {cfg.hybrid_tail_layers} tail (no depth "
-          f"cut), d_model {cfg.d_model}, "
+          f"{cfg.num_superlayers} + {cfg.hybrid_tail_layers} tail ({cut}), "
+          f"d_model {cfg.d_model}, "
           f"d_ff {cfg.d_ff}, heads {cfg.num_heads}/{cfg.num_kv_heads}, hd "
           f"{cfg.head_dim}, vocab {cfg.vocab_size} (padded "
           f"{cfg.padded_vocab}), experts {cfg.num_experts} top "
@@ -3520,6 +3549,33 @@ def moe_phase():
     del params
     torch.cuda.empty_cache()
     print(f"[{MOE_ARCH}] phase took {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return results
+
+
+# llama4-scout at its published width, cut in depth: its 48 layers hold
+# 107.7 B params (215 GB in bf16), 8 of them 19.7 B (39 GB)
+TOP1_ARCH, TOP1_LAYERS = "llama4-scout-17b-a16e", 8
+
+
+def moe_top1_phase():
+    """[moe-top1] llama4-scout-17b-a16e at its published width, 8 of its
+    48 layers: 16 experts, top 1, capacity ceil(1.25 * tokens / 16) per
+    group, and a shared SwiGLU expert beside them (its three GEMMs plain
+    kernel-A launches; the experts' one expert-batched launch each), 40
+    query heads over 8 kv heads on kernel B; ``bf16:dense:hopper`` dense
+    and paged against a torch-backend run, held sublayer by sublayer (a
+    top-1 router flips at near-ties, ROADMAP §3)."""
+    import torch
+    t0 = time.perf_counter()
+    cfg, params = block_model(TOP1_ARCH, layers=TOP1_LAYERS)
+    results, _ = serve_block(TOP1_ARCH, cfg, params,
+                             block_requests(cfg, [PROMPT_LENS[i % 2] for i
+                                                  in range(N_REQUESTS)]),
+                             MAX_LEN, {}, ("bf16",), PAGES)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[{TOP1_ARCH}] phase took {time.perf_counter() - t0:.1f}s",
           flush=True)
     return results
 
@@ -3835,22 +3891,40 @@ def leaf_grad_norms(cfg, rt, policy, params, batch):
     return float(loss), norms, grads
 
 
-def train_arm(tag, cfg, init, batches, steps, opt_cfg, rt, profile=False,
-              label="train"):
-    """``steps`` train steps under the policy ``tag`` from a copy of
-    ``init``: the step-0 loss and per-leaf grad norms (a separate forward
-    and backward before the steps), then the steps with every launch
-    counter zeroed just before and read just after, each step timed by
-    the host clock around work that ends in a device synchronise. Lines
-    are printed under ``[label]``."""
+def init_checksum(params) -> int:
+    """The sum of every leaf's bits read as integers (int16 words of a
+    bf16 leaf, int32 of an f32 one): equal for two draws of one init."""
+    import torch
+    from repro_torch.core import tree
+    return sum(int(t.view(torch.int16 if t.element_size() == 2
+                          else torch.int32).sum(dtype=torch.int64))
+               for t in tree.leaves(params))
+
+
+def train_arm(tag, cfg, draw, checksum, batches, steps, opt_cfg, rt,
+              profile=False, label="train"):
+    """``steps`` train steps under the policy ``tag`` from the init
+    ``draw()`` makes, which must be the one the phase's checks ran on (its
+    ``init_checksum`` equal to ``checksum``): the step-0 loss and per-leaf
+    grad norms (a separate forward and backward before the steps), then
+    the steps with every launch counter zeroed just before and read just
+    after, each step timed by the host clock around work that ends in a
+    device synchronise. Lines are printed under ``[label]``."""
     import torch
     from repro_torch.core import execution as ex
     from repro_torch.core import tree
     from repro_torch.runtime import train_loop as tl
     policy = ex.parse_policy(tag)
-    params = tree.map_tree(torch.clone, init)
+    params = draw()
+    if init_checksum(params) != checksum:
+        fail(f"{cfg.name} {tag}: the init drawn from the seed is not the "
+             "one the checks ran on (its checksum differs)")
     loss0, norms, grads = leaf_grad_norms(cfg, rt, policy, params,
                                           batches[0])
+    # an embeddings-input stack never reads its token table: its
+    # gradient must be exactly zero, as jax.grad gives it
+    embed_nonzero = int(torch.count_nonzero(grads["embed"])) \
+        if cfg.input_mode == "embeddings" else None
     if tag == "bf16:dense:hopper_sparse24":
         # the repaired fault: the weight gets the masked gradient of the
         # 2:4-pruned weight (half of each group of four), not none
@@ -3868,8 +3942,8 @@ def train_arm(tag, cfg, init, batches, steps, opt_cfg, rt, profile=False,
     sb = state_bytes(state)
     print(f"[{label}] {cfg.name} {tag}: state {json.dumps(sb)} = "
           f"{sum(sb.values()) / 2**30:.2f} GiB before the first step "
-          f"(grads {sb['params'] / 2**30:.2f} GiB more in a step)",
-          flush=True)
+          f"(grads {sb['params'] / 2**30:.2f} GiB more in a step; moments "
+          f"{str(opt_cfg.moments_dtype).split('.')[-1]})", flush=True)
     step = tl.make_train_step(cfg, opt_cfg, rt, policy=policy)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3886,7 +3960,8 @@ def train_arm(tag, cfg, init, batches, steps, opt_cfg, rt, profile=False,
     from repro_torch.kernels import fp8_matmul as fm
     types, batched = dict(fm.TYPE_LAUNCHES), fm.BATCHED_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
-    want = train_launches_expected(cfg, tag, steps)
+    b, seq = batches[0]["labels"].shape
+    want = train_launches_expected(cfg, tag, steps, seq)
     out = {"arch": cfg.name, "policy": tag, "losses": losses,
            "loss0": loss0, "aux": auxes,
            "grad_norms": norms, "step_ms": [1e3 * t for t in times],
@@ -3894,14 +3969,15 @@ def train_arm(tag, cfg, init, batches, steps, opt_cfg, rt, profile=False,
            "expert_batched_launches": batched,
            "expert_batched_expected": want["batched"],
            "gemm_by_type": types, "peak_bytes": peak,
-           "state_bytes": sum(sb.values())}
+           "state_bytes": sum(sb.values()),
+           "embed_grad_nonzero": embed_nonzero}
     # the median of the steps after the first (which takes the first
     # calls' set-up); a one-step arm has only the first
     later = sorted(out["step_ms"][1:] or out["step_ms"])
     half = len(later) // 2
     out["ms_per_step"] = later[half] if len(later) % 2 \
         else (later[half - 1] + later[half]) / 2
-    out["tok_s"] = TRAIN_B * TRAIN_S / (out["ms_per_step"] / 1e3)
+    out["tok_s"] = b * seq / (out["ms_per_step"] / 1e3)
     if profile:
         def one():
             nonlocal state
@@ -4062,51 +4138,57 @@ def check_pair(tag, hop, ref, precision, held=None, aux=False, hard=True,
             "held_leaves": len(gaps), "loss_ok": loss_ok, "grad_ok": grad_ok}
 
 
+def train_gemm_row(label, M, K, N, kind, out, gen, tag="train-gemm"):
+    """Kernel A at one training shape (M = B·S rows): checked against its
+    plain version and for a bit-equal repeat, timed with its bound and the
+    library call; the row is printed under ``[tag]``."""
+    import torch
+    from repro_torch.kernels import fp8_matmul as fm
+    out_dtype = getattr(torch, out)
+    x, w = gemm_inputs(M, K, N, kind, gen)
+    got = fm.fp8_matmul(x, w, out_dtype)
+    again = fm.fp8_matmul(x, w, out_dtype)
+    want = fm.fp8_matmul_plain(x, w, out_dtype)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / max(want.float().abs().max().item(), 1e-30)
+    same = bit_equal(got, again)
+    if not (rel <= GEMM_REL_TOL[out] and same
+            and bool(torch.isfinite(got).all())):
+        fail(f"GEMM {label} {kind}->{out} at M={M}: rel {rel:.2e}, "
+             f"repeat bit-equal {same}")
+    del got, again, want
+    ms, copies, timer = cold_ms(
+        lambda a, b: fm.fp8_matmul(a, b, out_dtype), (x, w), 10)
+    plain = time_ms(lambda: fm.fp8_matmul_plain(x, w, out_dtype), 2)
+    if kind == "bf16":
+        lib, _, lib_timer = cold_ms(torch.matmul, (x, w), 10)
+        note = "torch.matmul"
+    else:
+        lib, note, lib_timer = scaled_mm_ms(x, w, out_dtype, 10)
+    eb, ob = (2 if kind == "bf16" else 1), (4 if out == "float32" else 2)
+    bms, by = bound_ms(M * K * eb + K * N * eb + M * N * ob,
+                       2.0 * M * N * K, kind)
+    row = {"label": label, "M": M, "K": K, "N": N, "type": kind,
+           "out": out, "max_abs_err": err, "rel": rel, "ms": ms,
+           "plain_ms": plain, "library_ms": lib, "library_note": note,
+           "bound_ms": bms, "timer": timer, "library_timer": lib_timer,
+           "bound_by": by, "plan": plan_note(M, N, K, "gemm"),
+           "operand_copies": copies}
+    print(f"[{tag}] {json.dumps(row)}", flush=True)
+    return row
+
+
 def train_gemm_rows():
     """Kernel A at the training shapes, and kernel D at the gate/up shape
     of the prune+pack arm: checked against the plain versions, timed with
     their bounds and the library call."""
     import torch
     from repro_torch.core import sparsity as sp
-    from repro_torch.kernels import fp8_matmul as fm
     from repro_torch.kernels import sparse24_matmul as sm
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     M = TRAIN_B * TRAIN_S
-    rows = []
-    for label, K, N, kind, out in TRAIN_GEMM_SHAPES:
-        out_dtype = getattr(torch, out)
-        x, w = gemm_inputs(M, K, N, kind, gen)
-        got = fm.fp8_matmul(x, w, out_dtype)
-        again = fm.fp8_matmul(x, w, out_dtype)
-        want = fm.fp8_matmul_plain(x, w, out_dtype)
-        err = (got.float() - want.float()).abs().max().item()
-        rel = err / max(want.float().abs().max().item(), 1e-30)
-        same = bit_equal(got, again)
-        if not (rel <= GEMM_REL_TOL[out] and same
-                and bool(torch.isfinite(got).all())):
-            fail(f"GEMM {label} {kind}->{out} at M={M}: rel {rel:.2e}, "
-                 f"repeat bit-equal {same}")
-        del got, again, want
-        ms, copies, timer = cold_ms(
-            lambda a, b: fm.fp8_matmul(a, b, out_dtype), (x, w), 10)
-        plain = time_ms(lambda: fm.fp8_matmul_plain(x, w, out_dtype), 2)
-        if kind == "bf16":
-            lib, _, lib_timer = cold_ms(torch.matmul, (x, w), 10)
-            note = "torch.matmul"
-        else:
-            lib, note, lib_timer = scaled_mm_ms(x, w, out_dtype, 10)
-        eb, ob = (2 if kind == "bf16" else 1), (4 if out == "float32" else 2)
-        bms, by = bound_ms(M * K * eb + K * N * eb + M * N * ob,
-                           2.0 * M * N * K, kind)
-        row = {"label": label, "M": M, "K": K, "N": N, "type": kind,
-               "out": out, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-               "library_ms": lib, "library_note": note, "bound_ms": bms,
-               "timer": timer, "library_timer": lib_timer,
-               "bound_by": by, "plan": plan_note(M, N, K, "gemm"),
-               "operand_copies": copies}
-        rows.append(row)
-        print(f"[train-gemm] {json.dumps(row)}", flush=True)
-        del x, w
+    rows = [train_gemm_row(label, M, K, N, kind, out, gen)
+            for label, K, N, kind, out in TRAIN_GEMM_SHAPES]
     # kernel D: the prune+pack arm's gate/up, values packed from the
     # pruned weight as hopper_sparse24.dense packs them per call
     K, N = 4096, 14336
@@ -4320,9 +4402,14 @@ def train_phase():
     from repro_torch.optim import adamw
     t_phase = time.perf_counter()
     cfg = train_cfg()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    init = init_params(cfg, gen, device="cuda")
+
+    def draw():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        return init_params(cfg, gen, device="cuda")
+    init = draw()
     n_params = sum(t.numel() for t in tree.leaves(init))
+    checksum = init_checksum(init)
+    del init
     print(f"[train] {cfg.name}: {cfg.num_layers} layers (depth cut from "
           f"32), d_model {cfg.d_model}, d_ff {cfg.d_ff}, heads "
           f"{cfg.num_heads}/{cfg.num_kv_heads}, vocab {cfg.vocab_size}; "
@@ -4343,8 +4430,8 @@ def train_phase():
             ("fp8:dense:torch", TRAIN_STEPS, False),
             ("bf16:sparse24:hopper", 1, False),
             ("bf16:dense:hopper_sparse24", 1, False)):
-        arms[tag] = train_arm(tag, cfg, init, batches, steps, opt_cfg, rt,
-                              profile)
+        arms[tag] = train_arm(tag, cfg, draw, checksum, batches, steps,
+                              opt_cfg, rt, profile)
     gaps = {"bf16": check_pair("bf16:dense:hopper",
                                arms["bf16:dense:hopper"],
                                arms["bf16:dense:torch"], "bf16"),
@@ -4353,8 +4440,7 @@ def train_phase():
     fp8_types = arms["fp8:dense:hopper"]["gemm_by_type"]
     if fp8_types["e4m3"] != 2 * 7 * cfg.num_layers * TRAIN_STEPS:
         fail(f"fp8:dense:hopper: e4m3 launches {fp8_types}")
-    gaps["fp8"]["forward"] = fp8_forward_check(cfg, rt, init, batches[0])
-    del init
+    gaps["fp8"]["forward"] = fp8_forward_check(cfg, rt, draw(), batches[0])
     torch.cuda.empty_cache()
     fp8_linear_check()
     train_cli()
@@ -4376,22 +4462,88 @@ def train_phase():
 # [train-blocks]: training the MoE, hybrid and rwkv6 block kinds
 # ---------------------------------------------------------------------------
 
-# (arch, layers kept or None for the whole stack): granite and rwkv6 cut in
-# depth as [train] cuts llama3-8b; zamba2 whole, since its hybrid tail only
-# exists at full depth
-TRAIN_BLOCKS = (("granite-moe-3b-a800m", 8), ("zamba2-1.2b", None),
-                ("rwkv6-3b", 8))
+# (arch, layers kept or None for the whole stack, B, S): granite and rwkv6
+# cut in depth as [train] cuts llama3-8b; zamba2 whole, since its hybrid
+# tail only exists at full depth; gemma3-12b one 5 local : 1 global
+# super-layer at B=1, S=2048 (the others' 2048 tokens), so that its local
+# layers' window of 1024 masks; musicgen-medium whole (1.82 B params);
+# llama4-scout one of its 48 layers (4.27 B: the expert stacks 2.01 B, the
+# token table and the head 1.03 B each)
+TRAIN_BLOCKS = (("granite-moe-3b-a800m", 8, 4, 512),
+                ("zamba2-1.2b", None, 4, 512), ("rwkv6-3b", 8, 4, 512),
+                ("gemma3-12b", 6, 1, 2048), ("musicgen-medium", None, 4, 512),
+                ("llama4-scout-17b-a16e", 1, 4, 512))
 TRAIN_BLOCK_ARMS = ("bf16:dense:hopper", "bf16:dense:torch")
+# AdamW's moments in bf16 (the reference's own ``moments_dtype`` option)
+# where f32 ones do not fit on the card beside the rest of a step:
+# llama4-scout's 4.27 B params take 8.5 GB as bf16 weights, 17.1 GB as f32
+# masters and would take 34.2 GB as f32 moments
+TRAIN_BLOCK_BF16_MOMENTS = ("llama4-scout-17b-a16e",)
+# kernel A at the dense stacks' new training shapes, M = B·S = 2048 rows:
+# (label, K, N)
+TRAIN_BLOCK_GEMM_SHAPES = {
+    "gemma3-12b": (("gemma3_train_q", 3840, 4096),
+                   ("gemma3_train_k_v", 3840, 2048),
+                   ("gemma3_train_gate_up", 3840, 15360)),
+    "musicgen-medium": (("musicgen_train_qkvo", 1536, 1536),
+                        ("musicgen_train_gate_up", 1536, 6144))}
 
 
-def train_expert_rows(cfg):
+def train_bytes(cfg, opt_cfg) -> dict:
+    """``state_bytes`` of the state ``init_state`` makes for ``cfg`` under
+    ``opt_cfg``, reckoned from shapes alone (``init_state`` of a ``meta``
+    params tree: nothing is allocated)."""
+    from repro_torch.models.transformer import params_shape
+    from repro_torch.runtime import train_loop as tl
+    return state_bytes(tl.state_shape(cfg, opt_cfg, params_shape(cfg)))
+
+
+def train_peak_reckoned(cfg, opt_cfg) -> dict:
+    """A train step's peak bytes, reckoned before it runs: the state
+    (``train_bytes``), one gradient per param in its dtype, and AdamW's
+    f32 temporaries over the largest leaf (``adamw.apply`` updates a leaf
+    at a time: the f32 gradient, two products at once and, where the
+    moments are not f32 already, the f32 copies of both moments)."""
+    import torch
+    from repro_torch.core import tree
+    from repro_torch.models.transformer import params_shape
+    sb = train_bytes(cfg, opt_cfg)
+    largest = max(t.numel() for t in tree.leaves(params_shape(cfg)))
+    temps = 3 if opt_cfg.moments_dtype == torch.float32 else 5
+    out = {"state": sum(sb.values()), "grads": sb["params"],
+           "adamw_f32_temporaries": temps * 4 * largest}
+    out["total"] = sum(out.values())
+    return out
+
+
+def train_batches(cfg, B, S) -> list:
+    """TRAIN_STEPS batches of B sequences of S tokens on the card:
+    ``SyntheticLM``'s tokens and labels; an embeddings-input stack
+    (musicgen) takes seeded normal (B, S, d) f32 frames, made on the card,
+    as its inputs in place of the tokens, as ``tests/torch_train_parity.
+    batches`` makes them on the CPU."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    data = SyntheticLM(cfg.vocab_size, S, B, seed=SEED)
+    out = [{k: torch.from_numpy(v).to("cuda")
+            for k, v in data.batch_at(i).items()}
+           for i in range(TRAIN_STEPS)]
+    if cfg.input_mode == "embeddings":
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        for batch in out:
+            batch["inputs"] = torch.randn((B, S, cfg.d_model), generator=gen,
+                                          device="cuda")
+    return out
+
+
+def train_expert_rows(cfg, tokens):
     """``registry.hopper_experts`` (kernel A's expert-batched launch) at
-    the training step's expert shapes, forward and backward under
-    autograd, against the ``torch`` backend's per-expert path (the plain
-    version, whose gradient the hopper entry's backward differentiates):
-    the output and both operand gradients within GEMM_REL_TOL, one launch
-    per forward, a bit-equal repeat. Timed: the reference backward (the
-    loop of one f32 GEMM per expert) per call, by CUDA events with the
+    the expert shapes of a training step of ``tokens`` tokens, forward and
+    backward under autograd, against the ``torch`` backend's per-expert path
+    (the plain version, whose gradient the hopper entry's backward
+    differentiates): the output and both operand gradients within GEMM_REL_TOL,
+    one launch per forward, a bit-equal repeat. Timed: the reference backward
+    (the loop of one f32 GEMM per expert) per call, by CUDA events with the
     host's gaps in; at the gate/up shape (the kernels line's row) also the
     kernel with its bound and ``torch.bmm``."""
     import torch
@@ -4400,9 +4552,9 @@ def train_expert_rows(cfg):
     from repro_torch.kernels import registry
     from repro_torch.models import moe
     gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
-    gs = min(cfg.moe_group_size, TRAIN_B * TRAIN_S)
+    gs = min(cfg.moe_group_size, tokens)
     E = cfg.num_experts
-    M = TRAIN_B * TRAIN_S // gs * moe.capacity(cfg, gs)
+    M = tokens // gs * moe.capacity(cfg, gs)
     plain_pol = ex.parse_policy("bf16:dense:torch")
     bf16 = torch.bfloat16
     rows = []
@@ -4623,17 +4775,26 @@ def sublayer_grads_check(tag, cfg, params, batch) -> dict:
     down). The output, the input's gradient and each of the layer's
     leaves' gradients (a MoE sublayer's router and experts on one routing:
     both sides route the same input) must agree within LAYER_TOL
-    (max|diff| / max|torch|). Along the step-0 flow a few entries can sit
-    where the flow is ill-conditioned (rwkv6's first token: its wkv output
-    is 0 at init, so the per-head norm's backward scales it by
-    rsqrt(64e-5)); a sublayer that misses LAYER_TOL there is held instead
-    to TRAIN_PERM_SEEDS K-reorderings of the torch backend
-    (``perm_backend``) on the same input and cotangent: at least one of
-    them must miss LAYER_TOL too, and the hopper gap must be at most
-    F32_FACTOR times the farthest of theirs. End to end, a stack that
-    amplifies the backends' bf16 rounding (MoE routing, the recurrences)
-    cannot hold its forward or its gradients to such a gate; sublayer by
-    sublayer it can."""
+    (max|diff| / max|torch|). TOP1_ROUTER: a top-1 gate is divided by itself
+    (the reference normalises the top-k gates to sum to 1), so the router's
+    gradient through the combine weights is 0 in exact arithmetic; what a
+    backend computes there is the rounding residue of g/s - g·s/s², as large
+    as the experts' outputs times the cotangent allow (in float64, 3e-9 of the
+    float32 one), and two backends' expert outputs leave different residues.
+    Along the random cotangent, where at llama4-scout's width that residue
+    outweighs the aux loss's gradient (the two backends' router gradients part
+    by 1.56 of their size on the H100), a top-1 router is held by its aux
+    loss's gradient alone (the combine path's gap printed, not held); along
+    the step-0 flow, whole. Along the step-0 flow a few entries can sit where
+    the flow is ill-conditioned (rwkv6's first token: its wkv output is 0 at
+    init, so the per-head norm's backward scales it by rsqrt(64e-5)); a
+    sublayer that misses LAYER_TOL there is held instead to TRAIN_PERM_SEEDS
+    K-reorderings of the torch backend (``perm_backend``) on the same input
+    and cotangent: at least one of them must miss LAYER_TOL too, and the
+    hopper gap must be at most F32_FACTOR times the farthest of theirs. End to
+    end, a stack that amplifies the backends' bf16 rounding (MoE routing, the
+    recurrences) cannot hold its forward or its gradients to such a gate;
+    sublayer by sublayer it can."""
     import torch
     from repro_torch.core import execution as ex
     from repro_torch.core import tree
@@ -4645,12 +4806,18 @@ def sublayer_grads_check(tag, cfg, params, batch) -> dict:
         return ex.apply_policy(cfg, RuntimeCfg(), ex.parse_policy(
             f"bf16:dense:{be}"))
     sides = {be: side(be) for be in ("hopper", "torch")}
-    units, inputs = [], []
+    units, inputs, window = [], [], None
     with torch.no_grad():
-        x = embed_tokens(batch["inputs"], params["embed"]).to(torch.bfloat16)
+        # (B, S, d) frames are the stack's input as they are, as
+        # forward_hidden takes them; tokens go through the table
+        x = (batch["inputs"] if batch["inputs"].dim() == 3 else
+             embed_tokens(batch["inputs"], params["embed"])).to(
+                 torch.bfloat16)
         for li, (kind, p) in enumerate(zip(layer_kinds(cfg),
                                            params["layers"])):
             p = block_params(kind, p, params)
+            if kind == "attn_local" and window is None:
+                window = window_control(tag, cfg, p, x, sides["hopper"])
             for si, (_, unit) in enumerate(train_sublayers(
                     kind, p, *sides["torch"])):
                 units.append((li, si, kind, p))
@@ -4679,10 +4846,22 @@ def sublayer_grads_check(tag, cfg, params, batch) -> dict:
         with torch.enable_grad():
             out, aux = unit(xi)
             for k, ct in cots.items():
-                grads[k] = [g for g in torch.autograd.grad(
+                gs = list(torch.autograd.grad(
                     (out.float() * ct.float()).sum()
                     + tl.AUX_LOSS_WEIGHT * aux, [xi] + leaves,
-                    allow_unused=True, retain_graph=True) if g is not None]
+                    allow_unused=True, retain_graph=True))
+                if k == "random" and name == "moe" and \
+                        cfg.experts_top_k == 1:
+                    # TOP1_ROUTER: along the random cotangent a top-1
+                    # router is held by its aux loss's gradient; its
+                    # gradient through the combine weights is kept aside
+                    ri = 1 + next(j for j, t in enumerate(tree.leaves(p))
+                                  if t is p["moe"]["router"])
+                    grads["combine residue"] = [gs[ri]]
+                    gs[ri], = torch.autograd.grad(
+                        tl.AUX_LOSS_WEIGHT * aux, leaves[ri - 1],
+                        retain_graph=True)
+                grads[k] = [g for g in gs if g is not None]
         return name, out.detach(), grads
 
     def rel(a, b):
@@ -4697,13 +4876,17 @@ def sublayer_grads_check(tag, cfg, params, batch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
     worst = {(k, w): (0.0, None) for k in ("random", "flow")
              for w in ("output", "gradients")}
-    reordered = []
+    reordered, residue = [], None
     for i in reversed(range(len(units))):
         cots = {"random": torch.randn(flow.shape, generator=gen,
                                       device="cuda").to(flow.dtype),
                 "flow": flow}
         res = {be: run(i, *sides[be], cots) for be in sides}
         at = (units[i][0], res["torch"][0])
+        if "combine residue" in res["torch"][2]:
+            residue = max(residue or 0.0, rel(
+                res["hopper"][2]["combine residue"][0],
+                res["torch"][2]["combine residue"][0]))
         for k in cots:
             g = gaps(res["hopper"], res["torch"], k)
             if k == "flow" and max(g) > tol:
@@ -4743,64 +4926,118 @@ def sublayer_grads_check(tag, cfg, params, batch) -> dict:
                            f"{F32_FACTOR}x the farthest: "
                          + ("met" if f["ok"] else "MISSED") + ")"
                          for f in reordered) if k == "flow" else "")
+              + (f"; a top-1 router held along the random cotangent by "
+                 f"its aux loss's gradient (its gradient through the "
+                 f"combine weights, 0 in exact arithmetic, is each "
+                 f"backend's rounding residue: they part by {residue:.3e}, "
+                 f"not held)" if k == "random" and residue is not None
+                 else "")
               + f" {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         fail(f"{tag}: a sublayer's forward or backward differs from the "
              f"torch backend beyond {tol}: {worst}, {reordered}")
-    return {"sublayer_grad_worst_rel": {f"{k} {w}": v for (k, w), (v, _)
-                                        in worst.items()},
-            "sublayers_held_to_reorderings": reordered}
+    out = {"sublayer_grad_worst_rel": {f"{k} {w}": v for (k, w), (v, _)
+                                       in worst.items()},
+           "sublayers_held_to_reorderings": reordered}
+    if residue is not None:
+        out["top1_router_combine_residue_rel"] = residue
+    if window is not None:
+        out["window_control"] = window
+    return out
+
+
+def window_control(tag, cfg, p, x, side) -> dict:
+    """A local layer's attention sublayer (``p``) on its input ``x`` (B, S,
+    d) under ``side`` (cfg, rt), with its window and with none
+    (``window=0``). Over the positions where the window masks keys (t >=
+    window) the two outputs must differ by more than LAYER_TOL (max|diff|
+    / max|windowed| there): else the window did not bite, and the
+    sublayer check would hold the local layers to nothing a global layer
+    lacks. The first positions, which see every key either way, are left
+    out of both maxima."""
+    from repro_torch.models.attention import attention_block
+    from repro_torch.models.layers import rms_norm
+    c, r = side
+    W, S = cfg.window_size, x.shape[1]
+    if S <= W:
+        fail(f"{tag}: S={S} is within the window {W}: it cannot mask")
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    out = {w: attention_block(h, p["attn"], c, r, window=w)[:, W:].float()
+           for w in (W, 0)}
+    rel = float((out[W] - out[0]).abs().max()
+                / out[W].abs().max().clamp_min(1e-30))
+    tol = LAYER_TOL["bf16"]
+    print(f"[{tag}] window control: the first local layer's attention with "
+          f"window {W} against window 0 on the same input, over positions "
+          f"{W}..{S - 1}: max|diff|/max|windowed| {rel:.3e} (must exceed "
+          f"{tol}) {'ok' if rel > tol else 'MISMATCH'}", flush=True)
+    if not rel > tol:
+        fail(f"{tag}: the window did not bite (rel {rel:.3e} <= {tol})")
+    return {"window": W, "positions": [W, S - 1], "rel": rel}
 
 
 def train_blocks_phase():
-    """granite-moe-3b-a800m (8 of 32 layers), zamba2-1.2b (whole) and
-    rwkv6-3b (8 of 32 layers) at full width, B=4, S=512, bf16 weights
-    from a seeded generator on the card, ``SyntheticLM`` batches: three
-    steps under ``bf16:dense:hopper`` and ``bf16:dense:torch`` from copies
-    of one init, their launches, losses (granite's aux too) and step-0
-    grad norms held (not granite's router and experts; a recurrent
-    stack's loss or grad norms that miss, against an f32 run beside the
-    torch backend's K-reorderings, ``against_reorderings``), every
-    sublayer's forward and backward held teacher forced on the torch
-    backend's step-0 inputs and cotangents, kernel A's expert-batched
-    launch under autograd at the training shapes, one hopper step
-    profiled."""
+    """The TRAIN_BLOCKS stacks at full width, each at its own B and S,
+    bf16 weights drawn from a seeded generator on the card: three steps
+    under ``bf16:dense:hopper`` and ``bf16:dense:torch``, each arm drawing
+    its own init from the seed (one init's bits, held by its checksum; so
+    no init outlives the checks, and no two arms are live at once), their
+    launches, losses (the MoE stacks' aux too) and step-0 grad norms held
+    (not a MoE layer's router and experts; a recurrent stack's loss or
+    grad norms that miss, against an f32 run beside the torch backend's
+    K-reorderings, ``against_reorderings``), every sublayer's forward and
+    backward held teacher forced on the torch backend's step-0 inputs and
+    cotangents (gemma3's window shown to bite, ``window_control``), an
+    embeddings-input stack's token table given an exactly zero gradient,
+    kernel A's expert-batched launch under autograd at the training
+    shapes and kernel A at the dense stacks' new ones, one hopper step
+    profiled, its peak memory beside the reckoning."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import tree
-    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import init_params
     from repro_torch.models.layers import RuntimeCfg
     from repro_torch.models.transformer import reference_leaves
     from repro_torch.optim import adamw
     t_phase = time.perf_counter()
     rt = RuntimeCfg()
-    opt_cfg = adamw.AdamWConfig(total_steps=1000, warmup_steps=20)
-    results, summary, expert_rows = {}, {}, []
+    results, summary, expert_rows, gemm_rows = {}, {}, [], []
     hop_tag, ref_tag = TRAIN_BLOCK_ARMS
-    for arch, layers in TRAIN_BLOCKS:
+    for arch, layers, B, S in TRAIN_BLOCKS:
         t0 = time.perf_counter()
         full = get_arch(arch)
         cfg = full if layers is None else dataclasses.replace(
             full, num_layers=layers)
-        gen = torch.Generator(device="cuda").manual_seed(SEED)
-        init = init_params(cfg, gen, device="cuda")
+        moments = torch.bfloat16 if arch in TRAIN_BLOCK_BF16_MOMENTS \
+            else torch.float32
+        opt_cfg = adamw.AdamWConfig(total_steps=1000, warmup_steps=20,
+                                    moments_dtype=moments)
+
+        def draw(cfg=cfg):
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            return init_params(cfg, gen, device="cuda")
+        init = draw()
         n_params = sum(t.numel() for t in tree.leaves(init))
+        reckoned = train_peak_reckoned(cfg, opt_cfg)
         cut = "uncut" if layers is None else \
             f"depth cut from {full.num_layers}"
         print(f"[train-blocks] {arch}: {cfg.num_layers} layers ({cut}; "
               f"{cfg.superlayer_pattern} x {cfg.num_superlayers} + "
               f"{cfg.hybrid_tail_layers} tail), d_model {cfg.d_model}, d_ff "
               f"{cfg.d_ff}, experts {cfg.num_experts} top "
-              f"{cfg.experts_top_k}, ssm {cfg.ssm_kind or 'none'} chunk "
-              f"{min(rt.ssm_chunk, cfg.ssm_chunk)}; {n_params / 1e9:.2f} B "
-              f"params; B={TRAIN_B} S={TRAIN_S}, remat {cfg.remat}",
-              flush=True)
-        data = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=SEED)
-        batches = [{k: torch.from_numpy(v).to("cuda")
-                    for k, v in data.batch_at(i).items()}
-                   for i in range(TRAIN_STEPS)]
+              f"{cfg.experts_top_k}"
+              f"{' + shared' if cfg.moe_shared_expert else ''}, window "
+              f"{cfg.window_size}, ssm {cfg.ssm_kind or 'none'} "
+              f"chunk {min(rt.ssm_chunk, cfg.ssm_chunk)}, input "
+              f"{cfg.input_mode}; {n_params / 1e9:.2f} B params; B={B} "
+              f"S={S}, remat {cfg.remat}, AdamW moments "
+              f"{str(moments).split('.')[-1]}; peak reckoned "
+              f"{reckoned['total'] / 1e9:.2f} GB (state "
+              f"{reckoned['state'] / 1e9:.2f}, grads "
+              f"{reckoned['grads'] / 1e9:.2f}, AdamW's f32 temporaries "
+              f"{reckoned['adamw_f32_temporaries'] / 1e9:.2f})", flush=True)
+        batches = train_batches(cfg, B, S)
         # held by their grad norms: every leaf but a MoE layer's router
         # and expert stacks, which routing flips make discontinuous
         names = [r.name for r in tree.leaves(reference_leaves(init, cfg))]
@@ -4808,16 +5045,25 @@ def train_blocks_phase():
                 for n in names]
         gates = {}
         if cfg.num_experts:
-            rows = train_expert_rows(cfg)
+            rows = train_expert_rows(cfg, B * S)
             expert_rows += rows
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+        for label, K, N in TRAIN_BLOCK_GEMM_SHAPES.get(arch, ()):
+            gemm_rows.append(train_gemm_row(label, B * S, K, N, "bf16",
+                                            "bfloat16", gen,
+                                            "train-blocks-gemm"))
         gates.update(sublayer_grads_check(f"train-blocks {arch}", cfg,
                                           init, batches[0]))
+        checksum = init_checksum(init)
+        del init
+        torch.cuda.empty_cache()
         spent = {"set-up and checks": time.perf_counter() - t0}
         arms = {}
         for tag in TRAIN_BLOCK_ARMS:
             t1 = time.perf_counter()
-            arms[tag] = train_arm(tag, cfg, init, batches, TRAIN_STEPS,
-                                  opt_cfg, rt, profile=tag == hop_tag,
+            arms[tag] = train_arm(tag, cfg, draw, checksum, batches,
+                                  TRAIN_STEPS, opt_cfg, rt,
+                                  profile=tag == hop_tag,
                                   label="train-blocks")
             spent[tag] = time.perf_counter() - t1
         t1 = time.perf_counter()
@@ -4828,17 +5074,34 @@ def train_blocks_phase():
         gates["step0"] = first
         if not (first["loss_ok"] and first["grad_ok"]):
             gates["against_reorderings"] = against_reorderings(
-                f"{arch} {hop_tag}", cfg, rt, init, batches[0],
+                f"{arch} {hop_tag}", cfg, rt, draw(), batches[0],
                 arms[hop_tag], arms[ref_tag], held)
+        if cfg.input_mode == "embeddings":
+            nonzero = {tag: a["embed_grad_nonzero"] for tag, a in arms.items()}
+            print(f"[train-blocks] {arch}: the token table's step-0 gradient "
+                  f"(the stack reads (B, S, d) frames): nonzero entries "
+                  f"{nonzero} (must be 0, as jax.grad gives it) "
+                  f"{'ok' if not any(nonzero.values()) else 'MISMATCH'}",
+                  flush=True)
+            if any(nonzero.values()):
+                fail(f"{arch}: the unread token table has a nonzero "
+                     f"gradient {nonzero}")
+            gates["embed_grad_nonzero"] = nonzero
         spent["gates"] = time.perf_counter() - t1
-        del init
         torch.cuda.empty_cache()
+        print(f"[train-blocks] {arch}: peak memory "
+              + ", ".join(f"{tag} {a['peak_bytes'] / 1e9:.2f} GB"
+                          for tag, a in arms.items())
+              + f" against {reckoned['total'] / 1e9:.2f} GB reckoned",
+              flush=True)
         for tag, a in arms.items():
             results[f"train-blocks {arch} {tag}"] = {
                 "launches": a["launches"],
                 "expert_batched_launches": a["expert_batched_launches"]}
         summary[arch] = {
-            "layers": cfg.num_layers, "params": n_params, "gates": gates,
+            "layers": cfg.num_layers, "params": n_params, "B": B, "S": S,
+            "moments": str(moments).split(".")[-1],
+            "peak_reckoned_bytes": reckoned, "gates": gates,
             "arms": {tag: {k: a[k] for k in (
                 "ms_per_step", "tok_s", "peak_bytes", "state_bytes",
                 "launches", "expert_batched_launches")}
@@ -4858,7 +5121,7 @@ def train_blocks_phase():
     print(f"[train-blocks-summary] {json.dumps(summary)}", flush=True)
     print(f"[train-blocks] phase {time.perf_counter() - t_phase:.1f}s",
           flush=True)
-    return results, expert_rows, summary
+    return results, expert_rows + gemm_rows, summary
 
 
 def gemm_rounding_stats(cfg, params, tokens) -> dict:
@@ -4946,7 +5209,7 @@ def diagnose_train(arch: str = "rwkv6-3b", seeds: int = 4) -> dict:
     from repro_torch.models import init_params
     from repro_torch.models.layers import RuntimeCfg
     from repro_torch.models.transformer import reference_leaves
-    layers = dict(TRAIN_BLOCKS)[arch]
+    layers = next(t[1] for t in TRAIN_BLOCKS if t[0] == arch)
     full = get_arch(arch)
     cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -5407,7 +5670,7 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
              "src/repro/kernels/fp8_matmul.py:56 (vmapped over experts, "
              "src/repro/models/moe.py:149-164)",
              {p: r.get("expert_batched_launches", 0)
-              for p, r in serve.items()},
+              for p, r in serve.items() if p.startswith(MOE_ARCH)},
              f"E={x['E']} M={x['M']} K={x['K']} N={x['N']} bf16->bf16"),
             ("flash_attention_hd256", h,
              "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -5477,9 +5740,9 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
     # kernel A's expert-batched launch under autograd ([train-blocks]):
     # granite's expert gate/up at the training step's shape (two groups of
     # capacity 256 rows per expert); launches from the [train-blocks] arms
-    xt = pick(block_rows, label="train_moe_gate_up")
+    xt = pick(block_rows, label="train_moe_gate_up", E=40)
     by_policy = {p: r["expert_batched_launches"] for p, r in serve.items()
-                 if p.startswith("train-blocks ")}
+                 if p.startswith(f"train-blocks {MOE_ARCH} ")}
     out.append({"name": "gemm_experts_train", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/gemm.cu",
                 "replaces": "src/repro/kernels/fp8_matmul.py:56 (vmapped "
@@ -5488,6 +5751,48 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
                 "launches_by_policy": by_policy, **measured(xt),
                 "shape": f"E={xt['E']} M={xt['M']} K={xt['K']} N={xt['N']} "
                          "bf16->bf16, forward of an autograd Function"})
+    # llama4-scout's top-1 experts ([moe-top1] serving, [train-blocks]
+    # training) and kernel B at its 40 query heads over 8 kv heads; kernel
+    # A at gemma3-12b's and musicgen-medium's training gate/up; launches
+    # from those runs
+    x1 = pick(expert_rows, label="top1_decode_gate_up", type="bf16")
+    x1t = pick(block_rows, label="train_moe_gate_up", E=16)
+    b40 = pick(flash_rows, S=128, hd=128, h=40)
+    ag = pick(block_rows, label="gemma3_train_gate_up")
+    am = pick(block_rows, label="musicgen_train_gate_up")
+    experts_src = ("src/repro/kernels/fp8_matmul.py:56 (vmapped over "
+                   "experts, src/repro/models/moe.py:149-164)")
+    for name, row, source, replaces, prefix, key, shape in (
+            ("gemm_experts_top1", x1, "src/repro_torch/kernels/csrc/gemm.cu",
+             experts_src, TOP1_ARCH, "expert_batched_launches",
+             f"E={x1['E']} M={x1['M']} K={x1['K']} N={x1['N']} bf16->bf16"),
+            ("gemm_experts_train_top1", x1t,
+             "src/repro_torch/kernels/csrc/gemm.cu", experts_src,
+             f"train-blocks {TOP1_ARCH} ", "expert_batched_launches",
+             f"E={x1t['E']} M={x1t['M']} K={x1t['K']} N={x1t['N']} "
+             "bf16->bf16, forward of an autograd Function"),
+            ("flash_attention_h40", b40,
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:76", TOP1_ARCH,
+             "flash_attention",
+             f"B={b40['B']} h={b40['h']} kvh={b40['kvh']} S={b40['S']} "
+             f"hd={b40['hd']} causal bf16"),
+            ("gemm_train_gemma3", ag, "src/repro_torch/kernels/csrc/gemm.cu",
+             "src/repro/kernels/fp8_matmul.py:56",
+             f"train-blocks {LOCAL_ARCH} ", "gemm",
+             f"M={ag['M']} K={ag['K']} N={ag['N']} bf16->bf16"),
+            ("gemm_train_musicgen", am, "src/repro_torch/kernels/csrc/gemm.cu",
+             "src/repro/kernels/fp8_matmul.py:56",
+             "train-blocks musicgen-medium ", "gemm",
+             f"M={am['M']} K={am['K']} N={am['N']} bf16->bf16")):
+        by_policy = {p: (r[key] if key == "expert_batched_launches"
+                         else r["launches"][key])
+                     for p, r in serve.items() if p.startswith(prefix)}
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces,
+                    "launches": sum(by_policy.values()),
+                    "launches_by_policy": by_policy,
+                    **measured(row), "shape": shape})
     # kernel E is on no serving path (its counter read 0 in every policy's
     # run, which check_serve requires): its launches are those of its one
     # entry point, ops.block24_matmul, driven in block24_phase
@@ -5544,6 +5849,10 @@ def parse_args(argv):
     ap.add_argument("--train-blocks-only", action="store_true",
                     help="build, then run the [train-blocks] phase alone "
                          "and print no result line")
+    ap.add_argument("--moe-top1-only", action="store_true",
+                    help="build, then run the [moe-top1] phase alone "
+                         "(llama4-scout-17b-a16e served at 8 of its 48 "
+                         "layers) and print no result line")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to build and "
                          "measure (default: this checkout's); with "
@@ -5594,6 +5903,10 @@ def main() -> int:
         build_phase()
         train_blocks_phase()
         return 0
+    if ARGS.moe_top1_only:
+        build_phase()
+        moe_top1_phase()
+        return 0
     if ARGS.sample_only:
         build_phase()
         serve_phase()
@@ -5610,6 +5923,7 @@ def main() -> int:
     streams_phase()
     serve = serve_phase()
     serve.update(moe_phase())
+    serve.update(moe_top1_phase())
     serve.update(local_phase())
     serve.update(ssm_phase())
     serve.update(hybrid_phase())

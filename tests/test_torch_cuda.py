@@ -151,11 +151,66 @@ def test_cuda_expert_matmul_under_autograd_matches_the_torch_path(e, m, k,
                for a, b in zip(got, run(registry.hopper_experts)))
 
 
+# llama4-scout's expert GEMMs (16 experts, d 5120, expert d_ff 8192, top 1):
+# capacity 1 at a 4-slot decode step, 10 at a 128-token prefill, and two
+# groups of 1024 tokens at capacity 80 in a train step at B=4, S=512
+TOP1_EXPERT_SHAPES = [(16, 1, 5120, 8192), (16, 10, 8192, 5120),
+                      (16, 160, 5120, 8192), (16, 160, 8192, 5120)]
+# kernel A against its plain twin: max|err| / max|plain| (chip_smoke.py's
+# GEMM_REL_TOL: f32 sums in another order, and one bf16 rounding either
+# side)
+GEMM_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,k,n", TOP1_EXPERT_SHAPES)
+def test_cuda_top1_expert_gemm_matches_plain(e, m, k, n):
+    """Kernel A's expert-batched launch at llama4-scout's widths against
+    its plain twin, forward (both output types, one launch, an expert no
+    token reached exactly zero) and under autograd
+    (``registry.hopper_experts`` against the torch backend's per-expert
+    path: the output and both operand gradients)."""
+    from repro_torch.kernels import registry
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((e, m, k), generator=gen, device="cuda")
+    x[e // 2] = 0
+    x = x.bfloat16()
+    w = (torch.randn((e, k, n), generator=gen, device="cuda")
+         * k ** -0.5).bfloat16()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = fm.LAUNCHES
+        got = fm.fp8_matmul_batched(x, w, out_dtype)
+        assert fm.LAUNCHES == before + 1
+        want = fm.fp8_matmul_batched_plain(x, w, out_dtype)
+        assert _rel(got, want) <= GEMM_REL_TOL[out_dtype]
+        assert bool((got[e // 2] == 0).all())
+    g = torch.randn((e, m, n), generator=gen, device="cuda").bfloat16()
+
+    def run(path):
+        a, b = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        out = path(a, b)
+        return (out.detach(), *torch.autograd.grad(out, (a, b), g))
+    got = run(registry.hopper_experts)
+    want = run(lambda a, b: tex.matmul_experts(
+        a, b, tex.parse_policy("bf16:dense:torch")))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert _rel(a, b) <= GEMM_REL_TOL[torch.bfloat16]
+
+
 # (group, hd, s, kv heads): two kv heads at every S, head dim and group,
-# and zamba2-1.2b's shared-attention prefill (32 heads of 64, group 1)
+# zamba2-1.2b's shared-attention prefill (32 heads of 64, group 1) and
+# llama4-scout's (40 heads over 8 kv heads of 128: group 5)
 FLASH_CASES = [(g, hd, s, 2) for g in (1, 4, 8) for hd in (32, 64, 128, 256)
                for s in (1, 77, 128, 200, 512, 1040)] \
-    + [(1, 64, 128, 32), (1, 64, 512, 32)]
+    + [(1, 64, 128, 32), (1, 64, 512, 32)] \
+    + [(5, 128, s, 8) for s in (77, 128)]
 
 
 @pytest.mark.cuda

@@ -48,9 +48,25 @@ def smoke():
     ("llama4-scout-17b-a16e", "bf16:dense:hopper"),
     ("zamba2-1.2b", "bf16:dense:hopper"),
     ("zamba2-1.2b", "bf16:dense:hopper_sparse24"),
-    ("rwkv6-3b", "bf16:dense:hopper")])
+    ("rwkv6-3b", "bf16:dense:hopper"),
+    ("gemma3-12b", "bf16:dense:hopper"),
+    ("musicgen-medium", "bf16:dense:hopper")])
 def test_launches_expected_counts_each_block_kind(smoke, monkeypatch, arch,
                                                   spec):
+    check_one_step(smoke, monkeypatch, arch, spec, 64)
+
+
+def test_launches_expected_counts_a_step_of_four_ce_chunks(smoke,
+                                                           monkeypatch):
+    """gemma3's [train-blocks] arm, B=1 at S=2048: four CE chunks, each
+    checkpointed, so the head launches eight times."""
+    check_one_step(smoke, monkeypatch, "gemma3-12b", "bf16:dense:hopper",
+                   2048)
+
+
+def check_one_step(smoke, monkeypatch, arch, spec, seq):
+    """One step of reduced ``arch`` at B=1 and ``seq`` tokens, its kernel
+    calls counted, against ``train_launches_expected``."""
     calls = {"A": 0, "batched": 0, "D": 0}
     real = {"A": tfm.fp8_matmul, "batched": tfm.fp8_matmul_batched,
             "D": tsm.sparse24_matmul}
@@ -68,11 +84,13 @@ def test_launches_expected_counts_each_block_kind(smoke, monkeypatch, arch,
     opt = adamw.AdamWConfig()
     state = ttl.init_state(init_params(cfg, torch.Generator().manual_seed(0)),
                            opt)
-    seq = 64
     step = ttl.make_train_step(cfg, opt, RuntimeCfg(),
                                policy=tex.parse_policy(spec))
     tokens = torch.randint(0, cfg.vocab_size, (1, seq))
-    step(state, {"inputs": tokens, "labels": tokens})
+    # an embeddings-input stack (musicgen) reads (B, S, d) frames
+    inputs = torch.randn((1, seq, cfg.d_model)) \
+        if cfg.input_mode == "embeddings" else tokens
+    step(state, {"inputs": inputs, "labels": tokens})
     want = smoke.train_launches_expected(cfg, spec, 1, seq)
     assert calls == {"A": want["launches"]["gemm"], "batched": want["batched"],
                      "D": want["launches"]["sparse24_gemm"]}
@@ -95,3 +113,31 @@ def test_train_arms_keep_their_counts(smoke):
         "gemm": 6, "flash_attention": 0, "paged_attention": 0,
         "sparse24_gemm": 336, "block24_gemm": 0}
     assert all(g["batched"] == 0 for g in got.values())
+
+
+def test_head_launches_once_per_checkpointed_ce_chunk(smoke):
+    """The LM head's term at the gemma3 arm's S=2048: CE_CHUNK=512 makes
+    four chunks, each checkpointed, so 8 head launches per step; 2 at
+    S=512, where one chunk covers it."""
+    cfg = dataclasses.replace(get_reduced("llama3-8b"), remat="none")
+    got = {seq: smoke.train_launches_expected(
+        cfg, "bf16:dense:hopper", 1, seq)["launches"]["gemm"]
+        for seq in (512, 2048)}
+    assert got[2048] - got[512] == 2 * (2048 // ttl.CE_CHUNK - 1) == 6
+
+
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "gemma3-12b",
+                                  "musicgen-medium"])
+def test_train_bytes_reckons_the_state_byte_for_byte(smoke, arch, moments):
+    """``train_bytes`` (the card's reckoning before a step runs, from a
+    shape-only tree) against the state ``init_state`` allocates for a
+    reduced init, by part, with f32 and with bf16 moments."""
+    cfg = get_reduced(arch)
+    opt = adamw.AdamWConfig(moments_dtype=moments)
+    state = ttl.init_state(init_params(cfg, torch.Generator().manual_seed(0)),
+                           opt)
+    assert smoke.train_bytes(cfg, opt) == smoke.state_bytes(state)
+    peak = smoke.train_peak_reckoned(cfg, opt)
+    assert peak["state"] == sum(smoke.state_bytes(state).values())
+    assert peak["grads"] == smoke.state_bytes(state)["params"]

@@ -32,3 +32,42 @@ def test_step0_grads_match_jax(arch):
 
 def test_three_bf16_steps_match_jax():
     check_three_steps("granite-moe-3b-a800m", "bf16", *HOPPER)
+
+
+def test_top1_router_gradient_through_the_combine_weights_is_residue():
+    """A top-1 gate is divided by itself (the gates are normalised to sum
+    to 1), so a router's gradient through the combine weights is 0 in
+    exact arithmetic: in float64 the port's is within 1e-6 of the float32
+    one's size, and in float32 each package leaves a rounding residue of
+    its own (JAX's nonzero too). So on the card ``[train-blocks]`` holds
+    llama4-scout's router along a random cotangent by its aux loss's
+    gradient (``chip_smoke.sublayer_grads_check``, TOP1_ROUTER)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from repro.configs import get_reduced
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe as tmoe
+    cfg = dataclasses.replace(get_reduced("llama4-scout-17b-a16e"),
+                              num_experts=16)
+    assert cfg.experts_top_k == 1
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=(2, 64, 16))
+    cot = rng.normal(size=(2, 64, 16, 5)) * 1e4    # on combine (G, gs, E, C)
+
+    def port(dtype):
+        lg = torch.from_numpy(logits).to(dtype).requires_grad_(True)
+        combine, _, _ = tmoe.router_dispatch(lg, cfg, 5)
+        return torch.autograd.grad(
+            (combine.to(dtype) * torch.from_numpy(cot).to(dtype)).sum(),
+            lg)[0].abs().max().item()
+    jax_f32 = float(jnp.abs(jax.grad(lambda lg: jnp.sum(
+        jmoe.router_dispatch(lg, cfg, 5)[0] * cot.astype(np.float32)))(
+            logits.astype(np.float32))).max())
+    f32, f64 = port(torch.float32), port(torch.float64)
+    assert f32 > 0 and jax_f32 > 0
+    assert f64 <= 1e-6 * f32

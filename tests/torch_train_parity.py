@@ -137,16 +137,17 @@ def torch_run(arch, dtype, tspec, init, grad_compress="none", microbatch=0,
     return out
 
 
-def step0_grads(arch, jspec, tspec):
+def step0_grads(arch, jspec, tspec, b=B, s=S):
     """f32 step-0 gradients of JAX's loss under ``jspec`` and the port's
     under ``tspec``, from one JAX init bridged bit for bit, on the first
-    batch: [(the reference's leaf path, port f32, JAX f32)]."""
+    batch of ``b`` sequences of ``s``: [(the reference's leaf path, port
+    f32, JAX f32)]."""
     cfg = get_reduced(arch)
     jrt, trt = rts("f32")
     jcfg, jrt = jex.apply_policy(cfg, jrt, jex.parse_policy(jspec))
     tcfg, trt = tex.apply_policy(cfg, trt, tex.parse_policy(tspec))
     params = init_params(jax.random.PRNGKey(0), cfg, dtype=jnp.float32)
-    batch = batches(cfg, 1)[0]
+    batch = batches(cfg, 1, b, s)[0]
     jg = jax.jit(jax.grad(lambda p: jtl.make_loss_fn(jcfg, jrt)(
         p, to_jax(batch))[0]))(params)
     tp = bridge.params_from_numpy(jax.tree.map(np.asarray, params), cfg)
@@ -159,10 +160,11 @@ def step0_grads(arch, jspec, tspec):
             for (path, w), g in zip(paths, got)]
 
 
-def check_step0_grads(arch, tol, jspec=HOPPER[0], tspec=HOPPER[1]):
+def check_step0_grads(arch, tol, jspec=HOPPER[0], tspec=HOPPER[1], b=B,
+                      s=S):
     """Every leaf's f32 step-0 gradient within ``tol`` of its largest
-    entry."""
-    for name, got, want in step0_grads(arch, jspec, tspec):
+    entry, on a batch of ``b`` sequences of ``s``."""
+    for name, got, want in step0_grads(arch, jspec, tspec, b, s):
         assert got.shape == want.shape, name
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=tol * np.abs(want).max(),
