@@ -91,9 +91,17 @@ the plain run's; kernel B serves the global layers' prefill at hd 256.
 of its 48 layers (16 experts, top 1, and a shared expert whose three
 GEMMs run on plain kernel-A launches beside the expert-batched ones;
 kernel B at 40 query heads over 8 kv heads) under ``bf16:dense:hopper``
-dense and paged, held sublayer by sublayer as ``[moe]`` is. Each checks
-its launches exactly, and the paged runs equal the dense runs bit for
-bit.
+dense and paged, held sublayer by sublayer as ``[moe]`` is.
+``[dense-wide]`` serves the widest dense stacks: chameleon-34b whole (48
+layers, d 8192, 64 query heads over 8 kv heads: kernel B at group 8; 8
+prompts of 128 tokens), deepseek-67b at 4 of its 95 layers (its head of
+102400) and llama3-405b at 2 of its 126 (d 16384, d_ff 53248, group 16, a
+head of 128256), each under ``bf16:dense:hopper`` dense and paged within
+LOGIT_TOL of the torch backend, llama3-405b also under
+``fp8:dense:hopper``; then ``python -m repro_torch.launch.serve`` on
+chameleon-34b whole, called in this process as a user runs it, whose
+tokens must equal the dense run's. Each checks its launches exactly, and
+the paged runs equal the dense runs bit for bit.
 
 Then the recurrent block kinds at their published sizes. ``[ssm]``
 serves rwkv6-3b (32 rwkv6 layers, d 2560, 40 heads of 64; one prompt of
@@ -145,7 +153,8 @@ block, the hybrid tail outside the checkpoints), rwkv6-3b with 8 of its
 embeddings input, the token table's gradient exactly zero) and
 llama4-scout-17b-a16e with 1 of its 48 layers (top-1 routing at
 capacity 80 per group, the shared expert; AdamW's moments in bf16, the
-reference's own option, as f32 ones do not fit); and gemma3-12b's one 5
+reference's own option, as f32 ones do not fit), chameleon-34b with 1 of
+its 48 layers (its embeddings input as musicgen's); and gemma3-12b's one 5
 local : 1 global super-layer at B=1, S=2048, where the local layers'
 window of 1024 masks (a window-0 control must differ from the windowed
 sublayer). Each arm's launches exactly as the code implies (kernel
@@ -181,7 +190,8 @@ beside SDPA, whose CUDA-event means are kept as a second column.
 ``--kernels-only [--src DIR/src]`` runs just that, on this checkout or
 another, so that two commits' kernels can be timed by the same code in
 one call; ``--train-blocks-only`` builds and runs ``[train-blocks]``
-alone, ``--moe-top1-only`` ``[moe-top1]``.
+alone, ``--moe-top1-only`` ``[moe-top1]``, ``--dense-wide-only`` kernels
+A and B at ``[dense-wide]``'s shapes and that phase.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -427,10 +437,11 @@ def bound_ms(n_bytes: float, n_ops: float, kind: str):
 # Kernel A: the GEMM against its plain version
 # ---------------------------------------------------------------------------
 
-# (label, M, K, N): llama3-8b's projections at decode (M = slots: gate/up,
-# q/o, k/v, down and the LM head) and at prefill (M = 128, and the ragged
-# 77 of the second prompt length), and a ragged K.
-GEMM_SHAPES = (
+# (label, M, K, N, types): llama3-8b's projections at decode (M = slots:
+# gate/up, q/o, k/v, down and the LM head) and at prefill (M = 128, and the
+# ragged 77 of the second prompt length), and a ragged K, in every type.
+GEMM_TYPES = ("bf16", "e4m3", "e5m2")
+GEMM_SHAPES = tuple(shape + (GEMM_TYPES,) for shape in (
     ("decode_mlp", 4, 4096, 14336),
     ("decode_qo", 4, 4096, 4096),
     ("decode_kv", 4, 4096, 1024),
@@ -441,15 +452,13 @@ GEMM_SHAPES = (
     ("prefill_kv", 128, 4096, 1024),
     ("prefill_down", 128, 14336, 4096),
     ("prefill_ragged", 77, 4096, 14336),
-    ("ragged_k", 77, 4000, 1000),
-)
-GEMM_TYPES = ("bf16", "e4m3", "e5m2")
+    ("ragged_k", 77, 4000, 1000)))
 # The recurrent stacks' projections, in the two types their policies run
 # (bf16, and e4m3 under fp8): zamba2-1.2b's w_B / w_C / w_dt (N = 64, one
 # tile wide) at decode and at the 512-token prefill, its w_z / w_x and
 # out_proj at decode; rwkv6-3b's d x d time-mix linears, channel-mix key
 # and value at decode, and a d x d at its 256-token prefill.
-SSM_GEMM_SHAPES = (
+SSM_GEMM_SHAPES = tuple(shape + (GEMM_TYPES[:2],) for shape in (
     ("zamba2_decode_n64", 4, 2048, 64),
     ("zamba2_prefill_n64", 512, 2048, 64),
     ("zamba2_decode_zx", 4, 2048, 4096),
@@ -457,8 +466,35 @@ SSM_GEMM_SHAPES = (
     ("rwkv6_decode_dd", 4, 2560, 2560),
     ("rwkv6_decode_ck", 4, 2560, 8960),
     ("rwkv6_decode_cv", 4, 8960, 2560),
-    ("rwkv6_prefill_dd", 256, 2560, 2560),
-)
+    ("rwkv6_prefill_dd", 256, 2560, 2560)))
+# The widest dense stacks ([dense-wide]), each shape with the types timed:
+# chameleon-34b's and deepseek-67b's layer (d 8192, d_ff 22016, 64/8
+# heads of 128) and llama3-405b's (d 16384, d_ff 53248, 128/8 heads; its
+# down projection's K = 53248 is 3.7 times any other K of the repo) at
+# decode and at a 128-token prefill, bf16; llama3-405b's MLP also in e4m3
+# at decode (its fp8 run); the three heads (N = 65536, 102400, 128256; the
+# last the largest operand of the repo, 2.10 G entries) bf16 -> f32 at
+# decode.
+WIDE_GEMM_SHAPES = tuple(
+    (f"d{d}_{step}_{name}", M, K, N,
+     ("bf16", "e4m3") if d == 16384 and M == 4 and name in ("gate_up",
+                                                            "down")
+     else ("bf16",))
+    for step, M in (("decode", 4), ("prefill", 128))
+    for d, ff in ((8192, 22016), (16384, 53248))
+    for name, K, N in (("gate_up", d, ff), ("down", ff, d), ("qo", d, d),
+                       ("kv", d, 1024))) + (
+    ("chameleon_decode_head", 4, 8192, 65536, ("bf16",)),
+    ("deepseek_decode_head", 4, 8192, 102400, ("bf16",)),
+    ("llama3_405b_decode_head", 4, 16384, 128256, ("bf16",)))
+# the wide shapes whose bf16 rounding is held to the exact product:
+# the down projections, K = 22016 and K = 53248, at the 128-row prefill
+ROUNDING_LABELS = ("d8192_prefill_down", "d16384_prefill_down")
+# the most kernel A's f32 sums may lean toward zero there, as a share of
+# the exact product's RMS: it grows with the K-steps summed into one
+# accumulator (-8.5e-6 at K = 22016, -4.2e-5 at K = 53248, ROADMAP §3),
+# and past this limit it would near GEMM_REL_TOL's f32 1e-4
+ROUNDING_LEAN_LIMIT = 6e-5
 # kernel-vs-plain tolerance on max|err| / max|plain|: both accumulate exact
 # products in f32 and differ only in summation order (~1e-6 relative); a
 # bf16 output adds one rounding, 2^-8 relative, that the two may take on
@@ -478,16 +514,20 @@ def gemm_inputs(M, K, N, kind, gen):
             fp8lib.quantize_weight_static(w, dt)[0])
 
 
-def gemm_phase():
+def gemm_phase(shapes=None):
+    """Kernel A at ``shapes`` (default: every shape above), each in its
+    types, against its plain version in both output types, repeated bit
+    for bit, then timed at the output type the main path uses there
+    beside its bound and the library's call; at ROUNDING_LABELS, its bf16
+    rounding against the exact product (``rounding_row``)."""
     import torch
     from repro_torch.kernels import fp8_matmul as fm
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for label, M, K, N in GEMM_SHAPES + SSM_GEMM_SHAPES:
+    for label, M, K, N, types in shapes or (
+            GEMM_SHAPES + SSM_GEMM_SHAPES + WIDE_GEMM_SHAPES):
         plan = plan_note(M, N, K, "gemm")
         print(f"[gemm] {label} M={M} K={K} N={N}: plan {plan}", flush=True)
-        types = GEMM_TYPES[:2] if label.startswith(("zamba2", "rwkv6")) \
-            else GEMM_TYPES
         for kind in types:
             x, w = gemm_inputs(M, K, N, kind, gen)
             for out_dtype in (torch.float32, torch.bfloat16):
@@ -510,8 +550,35 @@ def gemm_phase():
                     fail(f"GEMM {label} {kind}->{name} disagrees with its "
                          f"plain version (rel {rel:.2e}) or with itself "
                          f"(bit-equal {same})")
+            if label in ROUNDING_LABELS and kind == "bf16":
+                # cuBLAS's bf16 GEMM runs on the same tensor cores: if it
+                # leans as kernel A does, the lean is the hardware's
+                stats = rounding_row(x, w, ("cublas_bf16", lambda a, b, **_:
+                                            torch.matmul(a, b)))
+                stats["cublas_bf16_reduced_precision_reduction"] = \
+                    torch.backends.cuda.matmul.\
+                    allow_bf16_reduced_precision_reduction
+                lean = stats["kernel_a_f32_bias_to_zero"]
+                print(f"[gemm] {label} K={K}: bf16 outputs off the exact "
+                      f"product rounded to nearest: kernel A "
+                      f"{100 * stats['flips']['kernel_a']:.3f}%, torch "
+                      f"backend {100 * stats['flips']['torch']:.3f}%, "
+                      f"cuBLAS bf16 {100 * stats['flips']['cublas_bf16']:.3f}%"
+                      " (ROADMAP §3, rwkv6-3b's linears at K <= 8960: "
+                      "0.153% and 0.024%); mean signed error toward zero "
+                      "over the exact RMS, f32 sums: kernel A "
+                      f"{lean:.2e} (limit {ROUNDING_LEAN_LIMIT:.0e}), torch "
+                      f"{stats['torch_f32_bias_to_zero']:.2e} (-2.0e-6 "
+                      "there); bf16 outputs: kernel A "
+                      f"{stats['bf16_bias_to_zero']['kernel_a']:.2e}, cuBLAS "
+                      f"{stats['bf16_bias_to_zero']['cublas_bf16']:.2e} "
+                      f"{json.dumps(stats)}", flush=True)
+                if not abs(lean) <= ROUNDING_LEAN_LIMIT:
+                    fail(f"GEMM {label}: kernel A's f32 sums lean {lean:.2e}"
+                         f" of the exact RMS toward zero, past "
+                         f"{ROUNDING_LEAN_LIMIT:.0e}")
             # times at the output type the main path uses there
-            out_dtype = torch.float32 if (label == "decode_head"
+            out_dtype = torch.float32 if (label.endswith("head")
                                           or kind != "bf16") \
                 else torch.bfloat16
             ebytes = 2 if kind == "bf16" else 1
@@ -681,12 +748,17 @@ def expert_gemm_phase():
 # B, h, kvh, S, hd: llama3-8b's prefills, gemma3-12b's global layers
 # (head_dim 256) at a 128-token prompt and at the [local] phase's long one,
 # zamba2-1.2b's shared attention (32 heads of 64, group 1) at a 128-token
-# prompt and at the [hybrid] phase's long one, and llama4-scout's prefills
-# (40 query heads over 8 kv heads: group 5)
+# prompt and at the [hybrid] phase's long one, llama4-scout's prefills
+# (40 query heads over 8 kv heads: group 5), and [dense-wide]'s:
+# chameleon-34b's and deepseek-67b's (64 over 8: group 8) and
+# llama3-405b's (128 over 8: group 16)
+WIDE_FLASH_SHAPES = ((1, 64, 8, 128, 128), (1, 64, 8, 77, 128),
+                     (1, 128, 8, 128, 128), (1, 128, 8, 77, 128))
 FLASH_SHAPES = ((1, 32, 8, 128, 128), (1, 32, 8, 77, 128),
                 (1, 16, 8, 128, 256), (1, 16, 8, 1040, 256),
                 (1, 32, 32, 128, 64), (1, 32, 32, 512, 64),
-                (1, 40, 8, 128, 128), (1, 40, 8, 77, 128))
+                (1, 40, 8, 128, 128), (1, 40, 8, 77, 128)) \
+    + WIDE_FLASH_SHAPES
 # kernel-vs-plain tolerance (absolute, on bf16 outputs of magnitude <= ~3):
 # f32 online softmax against a full softmax, then one bf16 rounding.
 FLASH_TOL = 2e-2
@@ -707,10 +779,11 @@ def flash_plan_note(B, h, S, hd) -> str:
         else fa.describe_grid(B, h, S)
 
 
-def flash_phase():
-    """Kernel B at the prefill shapes: checked against its plain version
-    and for a bit-equal repeat, then timed beside SDPA by device time with
-    the operands out of L2 (CUDA-event means as a second column)."""
+def flash_phase(shapes=FLASH_SHAPES):
+    """Kernel B at the prefill ``shapes``: checked against its plain
+    version and for a bit-equal repeat, then timed beside SDPA by device
+    time with the operands out of L2 (CUDA-event means as a second
+    column)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -724,7 +797,7 @@ def flash_phase():
                                               enable_gqa=True)
 
     rows = []
-    for B, h, kvh, S, hd in FLASH_SHAPES:
+    for B, h, kvh, S, hd in shapes:
         if hd not in fa.HEAD_DIMS:
             print(f"[flash] hd={hd}: not a head dim of this checkout's "
                   "kernel; skipped", flush=True)
@@ -1815,6 +1888,7 @@ def zero_launch_counts() -> None:
     fm.LAUNCHES = fa.LAUNCHES = pa.LAUNCHES = sm.LAUNCHES = \
         sm.BLOCK24_LAUNCHES = fm.BATCHED_LAUNCHES = 0
     fm.TYPE_LAUNCHES.update(dict.fromkeys(fm.TYPE_LAUNCHES, 0))
+    fm.WIDTH_LAUNCHES.clear()
 
 
 def _margin(row) -> float:
@@ -1948,8 +2022,13 @@ def serve_against_torch(cfg, params, requests, precision, tag,
     ``torch``-backend run of the same requests (``check_serve``; the
     first decode step's torch twin runs on a copy of the hopper run's
     state), then a profiled decode step. ``rt_kw`` goes to both sessions'
-    ``RuntimeCfg``. Returns (results, the hopper run, its launches, its
-    expert-batched launches of kernel A)."""
+    ``RuntimeCfg``. A MoE stack's end-to-end comparison is printed, not
+    gated (``check_serve``): under fp8, whose torch backend quantizes each
+    expert's weight per call in a per-expert loop (2.9 s per decode step
+    on granite-moe-3b-a800m, 111 s a run on the card), it is not served
+    end to end on that backend; its first decode step is compared with the
+    twin, and ``layerwise_check`` holds it. Returns (results, the hopper
+    run, its launches, its expert-batched launches of kernel A)."""
     from repro_torch.core import execution as ex
     from repro_torch.kernels import fp8_matmul as fm
     from repro_torch.models.layers import RuntimeCfg
@@ -1975,12 +2054,15 @@ def serve_against_torch(cfg, params, requests, precision, tag,
     zero_launch_counts()
     run = drive(hop, requests(), twin)
     launches, batched = launch_counts(), fm.BATCHED_LAUNCHES
+    widths = dict(fm.WIDTH_LAUNCHES)
     del hop
-    base = drive(session("torch", False), requests())
+    base = None if cfg.num_experts and precision != "bf16" else \
+        drive(session("torch", False), requests())
     if launch_counts() != launches:
         fail(f"{tag}: the torch-backend session launched a port kernel")
     res = check_serve(tag, run, base, launches, cfg, policy)
     res["expert_batched_launches"] = batched
+    res["gemm_launches_by_width"] = widths
     res.update(profile_decode(session("hopper", True), requests(),
                               res["decode_ms_per_step"]))
     return res, run, launches, batched
@@ -3399,9 +3481,17 @@ def diagnose_recurrent() -> None:
         torch.cuda.empty_cache()
 
 
+# free device memory a served model needs beyond its bf16 weights: caches,
+# the torch backend's f32 copy of a weight (2 GiB for chameleon-34b's
+# head), logits
+MODEL_HEADROOM = 4 * 2**30
+
+
 def block_model(arch, layers=None):
     """A full-size config's random weights on the card, from the seed;
-    with ``layers``, its first ``layers`` layers only (a depth cut)."""
+    with ``layers``, its first ``layers`` layers only (a depth cut). Fails
+    with the figures, before it allocates, where the card has less free
+    than the bf16 weights and MODEL_HEADROOM."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -3411,6 +3501,17 @@ def block_model(arch, layers=None):
                                                           num_layers=layers)
     cut = "no depth cut" if layers is None else \
         f"depth cut from {full.num_layers}"
+    # the earlier phases' freed blocks, still cached by the allocator
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    need = 2 * cfg.param_count() + MODEL_HEADROOM
+    print(f"[{arch}] {free / 2**30:.2f} GiB free of {total / 2**30:.2f} "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated by "
+          f"this process); the weights and headroom need "
+          f"{need / 2**30:.2f}", flush=True)
+    if free < need:
+        fail(f"{arch}: {free / 2**30:.2f} GiB free, {need / 2**30:.2f} GiB "
+             "needed")
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_params(cfg, gen, device="cuda")
@@ -3505,6 +3606,7 @@ def serve_block(arch, cfg, params, requests, max_len, rt_kw, precisions,
         zero_launch_counts()
         prun = drive(sess, requests())
         plaunches, pbatched = launch_counts(), fm.BATCHED_LAUNCHES
+        pwidths = dict(fm.WIDTH_LAUNCHES)
         peak = sess.pager.stats()["peak_pages_in_use"]
         del sess
         ptag = f"{tag} paged"
@@ -3526,6 +3628,7 @@ def serve_block(arch, cfg, params, requests, max_len, rt_kw, precisions,
                  f"dense run's {launches} ({batched})")
         results[ptag] = dict(run_times(ptag, prun), launches=plaunches,
                              expert_batched_launches=pbatched,
+                             gemm_launches_by_width=pwidths,
                              tokens_equal_dense=same, pages=paged_pages,
                              peak_pages_in_use=peak,
                              first_prefill_diff=pre, first_decode_diff=dec)
@@ -3576,6 +3679,131 @@ def moe_top1_phase():
     del params
     torch.cuda.empty_cache()
     print(f"[{TOP1_ARCH}] phase took {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return results
+
+
+# [dense-wide]: the three dense stacks widest on the card, (arch, layers
+# kept or None for the whole stack, prompt lengths, precisions, paged
+# pool). chameleon-34b whole (34.29 B params, 63.9 GiB in bf16; d 8192,
+# d_ff 22016, 64 query heads over 8 kv heads), 8 prompts of 128 tokens, so
+# that the serving CLI's --prompt-len 128 draws the same ones (4 slots of
+# 144 positions: 36 pages of 16); deepseek-67b (the same layer, a head of
+# 102400) at 4 of its 95 layers (4.45 B); llama3-405b (d 16384, d_ff
+# 53248, 128 over 8 heads, a head of 128256) at 2 of its 126 (10.58 B,
+# 19.7 GiB), also under fp8; both with the 128/77 prompts of the llama3
+# runs. (At 8 and 4 layers the whole script took 1,192 s of its 1,200 on
+# a slow host: the two depth cuts are halved to keep within the clock.)
+DENSE_WIDE = (("chameleon-34b", None, (128,), ("bf16",), 36),
+              ("deepseek-67b", 4, PROMPT_LENS, ("bf16",), PAGES),
+              ("llama3-405b", 2, PROMPT_LENS, ("bf16", "fp8"), PAGES))
+# the serving CLI, as a user runs it, on chameleon-34b whole: it draws its
+# weights (torch.Generator(device).manual_seed(seed), init_params) and its
+# prompts (default_rng(seed), one integers draw per request) as
+# block_model and block_requests do, so its tokens are [dense-wide]'s
+WIDE_CLI_ARCH = "chameleon-34b"
+WIDE_CLI_ARGV = ("--arch", WIDE_CLI_ARCH, "--device", "cuda",
+                 "--backend", "hopper", "--requests", str(N_REQUESTS),
+                 "--prompt-len", "128", "--max-new", str(MAX_NEW),
+                 "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+                 "--seed", str(SEED))
+
+
+def cli_first_tokens(stdout: str) -> dict:
+    """{uid: tokens} of the ``req`` lines the serving CLI prints (the
+    first 8 tokens of the first 4 requests it completed)."""
+    import re
+    return {int(m.group(1)): [int(t) for t in m.group(2).split(",")]
+            for m in re.finditer(r"^  req (\d+): \d+ new tokens, first 8: "
+                                 r"\[([^\]]*)\]$", stdout, re.M)}
+
+
+def serve_cli_check(tag, argv, dense_run, dense_launches) -> dict:
+    """``repro_torch.launch.serve.main(argv)`` in this process (no second
+    CUDA context beside the weights), its standard output captured: it
+    must return 0, complete every request, launch the kernels the dense
+    run launched, and print for each request it lists the first tokens of
+    ``dense_run``'s request of the same uid."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import fp8_matmul as fm
+    from repro_torch.launch import serve as serve_cli
+    buf = io.StringIO()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, widths = launch_counts(), dict(fm.WIDTH_LAUNCHES)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"[{tag}] | {line}", flush=True)
+    got = cli_first_tokens(out)
+    same = sum(toks == dense_run["outs"][uid][:len(toks)]
+               for uid, toks in got.items())
+    done = f"[serve] {N_REQUESTS}/{N_REQUESTS} requests, " \
+        f"{N_REQUESTS * MAX_NEW} tokens"
+    print(f"[{tag}] python -m repro_torch.launch.serve {' '.join(argv)}: rc "
+          f"{rc} in {wall:.1f}s (weights made in it); tokens of uids "
+          f"{sorted(got)} equal to the dense run's for {same}/{len(got)}; "
+          f"launches {launches}, the dense run's {dense_launches}",
+          flush=True)
+    if rc != 0 or done not in out:
+        fail(f"{tag}: rc {rc}, or no line '{done}'")
+    if len(got) != min(4, N_REQUESTS) or same != len(got):
+        fail(f"{tag}: tokens {got} differ from the dense run's")
+    if launches != dense_launches:
+        fail(f"{tag}: launches {launches}, the dense run's {dense_launches}")
+    return {"policy": tag, "rc": rc, "seconds": wall, "launches": launches,
+            "expert_batched_launches": 0, "gemm_launches_by_width": widths,
+            "uids": sorted(got),
+            "tokens_equal_dense": same}
+
+
+def dense_wide_phase():
+    """[dense-wide] the DENSE_WIDE arms at their published width, each
+    through ``serve_block``: every precision's ``{p}:dense:hopper`` run
+    against a torch-backend run (logits within LOGIT_TOL, tokens equal up
+    to a near-tie), launches exact, the bf16 run once more from a paged
+    cache, bit-equal; chameleon-34b whole, then the serving CLI on it
+    (``serve_cli_check``). Each arm's weights are freed before the next
+    (``block_model`` checks the free memory against them first)."""
+    import torch
+    t_phase = time.perf_counter()
+    results = {}
+    for arch, layers, lens, precisions, pages in DENSE_WIDE:
+        t0 = time.perf_counter()
+        cfg, params = block_model(arch, layers=layers)
+        requests = block_requests(cfg, [lens[i % len(lens)]
+                                        for i in range(N_REQUESTS)])
+        res, dense = serve_block(arch, cfg, params, requests, MAX_LEN, {},
+                                 precisions, pages)
+        del params
+        torch.cuda.empty_cache()
+        if arch == WIDE_CLI_ARCH:
+            tag = f"{arch} CLI"
+            res[tag] = serve_cli_check(
+                tag, WIDE_CLI_ARGV, dense,
+                res[f"{arch} bf16:dense:hopper"]["launches"])
+            torch.cuda.empty_cache()
+        for tag, r in res.items():
+            # the head's launches, counted where kernel A launches (its
+            # output width, the padded vocab, is no other linear's): once
+            # per prefill and per decode step, a share of the gated total
+            r["head_launches"] = r["gemm_launches_by_width"].get(
+                cfg.padded_vocab, 0)
+            steps = r["launches"]["gemm"] // (linears_per_step(cfg) + 1)
+            print(f"[{tag}] head (N={cfg.padded_vocab}) launches "
+                  f"{r['head_launches']} over {steps} prefills and decode "
+                  "steps", flush=True)
+            if r["head_launches"] != steps:
+                fail(f"{tag}: the head launched {r['head_launches']} times "
+                     f"over {steps} prefills and decode steps")
+        results.update(res)
+        print(f"[{arch}] took {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"[dense-wide] phase {time.perf_counter() - t_phase:.1f}s",
           flush=True)
     return results
 
@@ -4468,11 +4696,14 @@ def train_phase():
 # super-layer at B=1, S=2048 (the others' 2048 tokens), so that its local
 # layers' window of 1024 masks; musicgen-medium whole (1.82 B params);
 # llama4-scout one of its 48 layers (4.27 B: the expert stacks 2.01 B, the
-# token table and the head 1.03 B each)
+# token table and the head 1.03 B each); chameleon-34b one of its 48
+# (1.77 B: the layer 0.69 B, the token table and the head 0.54 B each),
+# its embeddings input as musicgen's
 TRAIN_BLOCKS = (("granite-moe-3b-a800m", 8, 4, 512),
                 ("zamba2-1.2b", None, 4, 512), ("rwkv6-3b", 8, 4, 512),
                 ("gemma3-12b", 6, 1, 2048), ("musicgen-medium", None, 4, 512),
-                ("llama4-scout-17b-a16e", 1, 4, 512))
+                ("llama4-scout-17b-a16e", 1, 4, 512),
+                ("chameleon-34b", 1, 4, 512))
 TRAIN_BLOCK_ARMS = ("bf16:dense:hopper", "bf16:dense:torch")
 # AdamW's moments in bf16 (the reference's own ``moments_dtype`` option)
 # where f32 ones do not fit on the card beside the rest of a step:
@@ -4486,7 +4717,11 @@ TRAIN_BLOCK_GEMM_SHAPES = {
                    ("gemma3_train_k_v", 3840, 2048),
                    ("gemma3_train_gate_up", 3840, 15360)),
     "musicgen-medium": (("musicgen_train_qkvo", 1536, 1536),
-                        ("musicgen_train_gate_up", 1536, 6144))}
+                        ("musicgen_train_gate_up", 1536, 6144)),
+    "chameleon-34b": (("chameleon_train_qo", 8192, 8192),
+                      ("chameleon_train_k_v", 8192, 1024),
+                      ("chameleon_train_gate_up", 8192, 22016),
+                      ("chameleon_train_down", 22016, 8192))}
 
 
 def train_bytes(cfg, opt_cfg) -> dict:
@@ -5124,17 +5359,45 @@ def train_blocks_phase():
     return results, expert_rows + gemm_rows, summary
 
 
+def rounding_row(x, w, extra=None) -> dict:
+    """``x @ w`` (bf16, 2-D) held to its exact product (float64): the
+    share of bf16 outputs that are not the exact product rounded to
+    nearest under kernel A, the torch backend and ``extra`` (a (name,
+    dense backend function) pair), and their mean signed error toward
+    zero over the RMS of the exact product (negative: the outputs
+    shrink); and of the f32 products (kernel A's f32 output, the torch
+    backend's f32 product), the RMS error over that RMS and the mean
+    signed error toward zero."""
+    import torch
+    from repro_torch.kernels import fp8_matmul as fm
+    from repro_torch.kernels import registry
+    torch_dense = registry.get_backend("torch").dense
+    exact = x.double() @ w.double()
+    near = exact.to(torch.bfloat16)
+    scale = exact.pow(2).mean().sqrt()
+    bf16 = [("kernel_a", fm.fp8_matmul(x, w, torch.bfloat16)),
+            ("torch", torch_dense(x, w, out_dtype=torch.bfloat16))]
+    if extra is not None:
+        bf16.append((extra[0], extra[1](x, w, out_dtype=torch.bfloat16)))
+    row = {"flips": {k: float((v != near).float().mean()) for k, v in bf16},
+           "bf16_bias_to_zero": {k: float(((v.double() - exact)
+                                           * exact.sign()).mean() / scale)
+                                 for k, v in bf16}}
+    for k, v in (("kernel_a", fm.fp8_matmul(x, w, torch.float32)),
+                 ("torch", x.float() @ w.float())):
+        err = v.double() - exact
+        row[f"{k}_f32_rel_rms"] = float(err.pow(2).mean().sqrt() / scale)
+        row[f"{k}_f32_bias_to_zero"] = float(
+            (err * exact.sign()).mean() / scale)
+    return row
+
+
 def gemm_rounding_stats(cfg, params, tokens) -> dict:
     """Every linear of one no-grad forward of ``cfg`` (the torch backend's
-    inputs), held to its exact product (float64): the share of bf16
-    outputs that are not the exact product rounded to nearest, under
-    kernel A, the torch backend and ``torch_perm1``; and of the f32
-    products (kernel A's f32 output, the torch backend's f32 product), the
-    RMS error over the RMS of the exact product and the mean signed error
-    toward zero (negative: the sums shrink)."""
+    inputs), held to its exact product (``rounding_row``, with
+    ``torch_perm1`` beside kernel A and the torch backend)."""
     import torch
     from repro_torch.core import execution as ex
-    from repro_torch.kernels import fp8_matmul as fm
     from repro_torch.kernels import registry
     from repro_torch.models.layers import RuntimeCfg
     perm = registry.get_backend(perm_backend(1)).dense
@@ -5144,24 +5407,9 @@ def gemm_rounding_stats(cfg, params, tokens) -> dict:
     def record(x, w, *, out_dtype=torch.bfloat16, bm=None, bn=None,
                bk=None):
         out = torch_dense(x, w, out_dtype=out_dtype)
-        x2 = x.reshape(-1, x.shape[-1])
-        exact = x2.double() @ w.double()
-        near = exact.to(torch.bfloat16)
-        scale = exact.pow(2).mean().sqrt()
-        row = {"K": w.shape[0], "N": w.shape[1], "out": str(out_dtype)}
-        a16 = fm.fp8_matmul(x2.contiguous(), w.contiguous(), torch.bfloat16)
-        row["flips"] = {k: float((v != near).float().mean()) for k, v in (
-            ("kernel_a", a16),
-            ("torch", torch_dense(x2, w, out_dtype=torch.bfloat16)),
-            ("torch_perm1", perm(x2, w, out_dtype=torch.bfloat16)))}
-        for k, v in (("kernel_a", fm.fp8_matmul(x2.contiguous(),
-                                                w.contiguous(),
-                                                torch.float32)),
-                     ("torch", x2.float() @ w.float())):
-            err = v.double() - exact
-            row[f"{k}_f32_rel_rms"] = float(err.pow(2).mean().sqrt() / scale)
-            row[f"{k}_f32_bias_to_zero"] = float(
-                (err * exact.sign()).mean() / scale)
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        row = {"K": w.shape[0], "N": w.shape[1], "out": str(out_dtype),
+               **rounding_row(x2, w.contiguous(), ("torch_perm1", perm))}
         rows.append(row)
         return out
     t = registry.get_backend("torch")
@@ -5270,16 +5518,45 @@ DIST_CELLS = (("train_4k", "dryrun", None), ("decode_32k", "dryrun", None),
 DIST_BOUND_SLACK = 1.05
 
 
-def dist_cli(shape: str, tool: str, variants, out: Path):
+def dist_cli(shape: str, tool: str, variants, out: Path, log: Path):
     """``python -m repro_torch.launch.{dryrun,perf}`` on llama3-8b, as a
-    user runs it (CPU work on meta tensors over a fake process group)."""
+    user runs it (CPU work on meta tensors over a fake process group), its
+    output to ``log``."""
     args = [sys.executable, "-m", f"repro_torch.launch.{tool}",
             "--arch", "llama3-8b", "--shape", shape, "--out", str(out)]
     if tool == "perf":
         args += ["--variant", variants]
     env = dict(os.environ, PYTHONPATH=str(ARGS.src))
-    return subprocess.Popen(args, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    with open(log, "w") as fh:
+        return subprocess.Popen(args, env=env, stdout=fh,
+                                stderr=subprocess.STDOUT)
+
+
+def stop_procs(procs) -> None:
+    for *_, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dist_start() -> list:
+    """Start [dist]'s dry-run CLIs, which make no CUDA call: they run
+    beside [train-blocks], whose steps keep the device busy, and
+    ``dist_phase`` reads them (started in [dist] itself, they held that
+    phase for 47-77 s of the script's 1,200 on a slow host). Each is
+    stopped when the script exits, a failure's exit too."""
+    import atexit
+    out_dir = ROOT / "build" / "dist"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for shape, tool, variants in DIST_CELLS:
+        path = out_dir / f"{tool}_{shape}.jsonl"
+        path.unlink(missing_ok=True)
+        log = out_dir / f"{tool}_{shape}.log"
+        procs.append((shape, tool, path, log, time.perf_counter(),
+                      dist_cli(shape, tool, variants, path, log)))
+    atexit.register(stop_procs, procs)
+    return procs
 
 
 def dist_card_roofline(tag, smi, cfg, shape, rt, measured_ms, lower,
@@ -5373,10 +5650,11 @@ def dist_dots_step(smi, cfg, rt) -> dict:
     return {"train bf16:dense:hopper remat=dots": {"launches": nd}}
 
 
-def dist_phase(smi, train_summary, serve_dense) -> dict:
-    """The dry-run CLIs on llama3-8b's production cells; [train]'s step and
-    [serve]'s decode step dry-run on a 1x1 mesh and held to their measured
-    times; one [train] step under ``remat="dots"``."""
+def dist_phase(smi, train_summary, serve_dense, procs) -> dict:
+    """The dry-run CLIs on llama3-8b's production cells (``procs``, from
+    ``dist_start``); [train]'s step and [serve]'s decode step dry-run on a
+    1x1 mesh and held to their measured times; one [train] step under
+    ``remat="dots"``."""
     import json as _json
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
@@ -5386,14 +5664,6 @@ def dist_phase(smi, train_summary, serve_dense) -> dict:
     from repro_torch.models.layers import RuntimeCfg
     from repro_torch.optim import adamw
     t_phase = time.perf_counter()
-    out_dir = ROOT / "build" / "dist"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for shape, tool, variants in DIST_CELLS:
-        path = out_dir / f"{tool}_{shape}.jsonl"
-        path.unlink(missing_ok=True)
-        procs.append((shape, tool, path, time.perf_counter(),
-                      dist_cli(shape, tool, variants, path)))
     results = {}
     try:
         cfg = train_cfg()
@@ -5426,14 +5696,16 @@ def dist_phase(smi, train_summary, serve_dense) -> dict:
         mesh_mod.destroy()
         results.update(dist_dots_step(smi, cfg, RuntimeCfg()))
         flops = {}
-        for shape, tool, path, t0, proc in procs:
-            text, _ = proc.communicate(timeout=600)
+        for shape, tool, path, log, t0, proc in procs:
+            waited = time.perf_counter()
+            proc.wait(timeout=600)
             secs = time.perf_counter() - t0
-            (ROOT / "build" / "dist" / f"{tool}_{shape}.log").write_text(text)
+            text = log.read_text()
             tail = [ln for ln in text.splitlines()
                     if not ln.startswith("[rank")][-6:]
             print(f"[dist] {tool} llama3-8b {shape}: rc {proc.returncode} "
-                  f"in {secs:.1f}s; " + " | ".join(tail), flush=True)
+                  f"in {secs:.1f}s ({time.perf_counter() - waited:.1f}s "
+                  "of it waited for here); " + " | ".join(tail), flush=True)
             if proc.returncode != 0:
                 fail(f"[dist] {tool} {shape} exited {proc.returncode}")
             recs = [_json.loads(ln) for ln in path.read_text().splitlines()]
@@ -5470,10 +5742,7 @@ def dist_phase(smi, train_summary, serve_dense) -> dict:
             fail("[dist] train_4k: remat_dots recomputes as much as the "
                  "baseline")
     finally:
-        for *_, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_procs(procs)
         mesh_mod.destroy()
     summary = {"train": {k: v for k, v in tr.items() if k != "memory"},
                "train_memory": tr["memory"],
@@ -5576,19 +5845,27 @@ def check_serve(tag, run, base, launches, cfg, policy=None):
             fail(f"{tag}: kernel {name} was launched {n} times on the main "
                  f"path (its kernels: {', '.join(on_path)})")
     # prefill: the same prompt under both backends; decode: the torch
-    # backend's step from the hopper run's own state (tokens, caches)
-    pre = (run["first"]["prefill"] - base["first"]["prefill"]).abs().max()
+    # backend's step from the hopper run's own state (tokens, caches).
+    # ``base`` None: the torch backend served no run (an fp8 MoE stack,
+    # ``serve_against_torch``), so only the decode step is compared
+    pre = None if base is None else float(
+        (run["first"]["prefill"] - base["first"]["prefill"]).abs().max())
     rows = run["first"]["decode_rows"]
-    dec = (run["first"]["decode"][rows] - run["first"]["decode_twin"][rows]
-           ).abs().max()
-    pre, dec = float(pre), float(dec)
+    dec = float((run["first"]["decode"][rows]
+                 - run["first"]["decode_twin"][rows]).abs().max())
     print(f"[serve] {tag}: logits vs torch backend: first prefill "
-          f"max_abs_err={pre:.4f}" + ("" if gate_prefill else
-                                      " (held to an f32 run instead)")
+          + ("not served on the torch backend" if pre is None else
+             f"max_abs_err={pre:.4f}" + ("" if gate_prefill else
+                                         " (held to an f32 run instead)"))
           + f", first decode max_abs_err={dec:.4f} (tolerance {tol})",
           flush=True)
     if gate_e2e and not ((pre <= tol or not gate_prefill) and dec <= tol):
         fail(f"{tag}: logits differ from the torch backend beyond {tol}")
+    if base is None:
+        res = dict(run_times(tag, run), launches=launches,
+                   first_prefill_err=None, first_decode_err=dec)
+        print(f"[serve-time] {json.dumps(res)}", flush=True)
+        return res
     # greedy tokens: a request's first flip must sit at a near-tie, a step
     # whose top-2 margin is under twice the logit tolerance (each of the
     # two logits may move by tol); print where each request first met one
@@ -5641,6 +5918,10 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
     f = pick(flash_rows, S=128, hd=128)
     d = pick(sparse24_rows, label="decode_gate_up", values="bf16")
     e = pick(block24_rows, M=4, block=128)
+    # the runs of [dense-wide]'s stacks (served, and chameleon-34b's
+    # [train-blocks] arms) count in their own entries below, not in these
+    wide = tuple(f"{arch} " for arch, *_ in DENSE_WIDE) + (
+        "train-blocks chameleon-34b ",)
     out = []
     for name, row, source, replaces, shape in (
             ("gemm", g, "src/repro_torch/kernels/csrc/gemm.cu",
@@ -5655,7 +5936,8 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
              "src/repro_torch/kernels/csrc/sparse24_gemm.cu",
              "src/repro/kernels/sparse24_matmul.py:68",
              f"M={d['M']} K={d['K']} N={d['N']} packed bf16->bf16")):
-        by_policy = {p: r["launches"][name] for p, r in serve.items()}
+        by_policy = {p: r["launches"][name] for p, r in serve.items()
+                     if not p.startswith(wide)}
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces,
                     "launches": sum(by_policy.values()),
@@ -5753,40 +6035,60 @@ def kernel_line(gemm_rows, flash_rows, sparse24_rows, block24_rows,
                          "bf16->bf16, forward of an autograd Function"})
     # llama4-scout's top-1 experts ([moe-top1] serving, [train-blocks]
     # training) and kernel B at its 40 query heads over 8 kv heads; kernel
-    # A at gemma3-12b's and musicgen-medium's training gate/up; launches
-    # from those runs
+    # A at gemma3-12b's and musicgen-medium's training gate/up; the widest
+    # dense stacks ([dense-wide]): kernel A at llama3-405b's decode gate/up
+    # (launches: every linear and head of the three arms' runs, the serving
+    # CLI's and chameleon-34b's training arms' too) and at its head (the head's own launches, counted by
+    # output width), kernel B at GQA group 8 (64 query heads over 8:
+    # chameleon-34b, deepseek-67b) and 16 (128 over 8: llama3-405b);
+    # launches from those runs
     x1 = pick(expert_rows, label="top1_decode_gate_up", type="bf16")
     x1t = pick(block_rows, label="train_moe_gate_up", E=16)
     b40 = pick(flash_rows, S=128, hd=128, h=40)
     ag = pick(block_rows, label="gemma3_train_gate_up")
     am = pick(block_rows, label="musicgen_train_gate_up")
-    experts_src = ("src/repro/kernels/fp8_matmul.py:56 (vmapped over "
-                   "experts, src/repro/models/moe.py:149-164)")
+    aw = pick(gemm_rows, label="d16384_decode_gate_up", type="bf16")
+    ah = pick(gemm_rows, label="llama3_405b_decode_head", type="bf16")
+    b8 = pick(flash_rows, S=128, hd=128, h=64)
+    b16 = pick(flash_rows, S=128, hd=128, h=128)
+    gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
+    gemm_tpu = "src/repro/kernels/fp8_matmul.py:56"
+    flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    flash_tpu = "src/repro/kernels/flash_attention.py:76"
+    experts_src = (f"{gemm_tpu} (vmapped over experts, "
+                   "src/repro/models/moe.py:149-164)")
+
+    def flash_shape(b):
+        return (f"B={b['B']} h={b['h']} kvh={b['kvh']} S={b['S']} "
+                f"hd={b['hd']} causal bf16")
     for name, row, source, replaces, prefix, key, shape in (
-            ("gemm_experts_top1", x1, "src/repro_torch/kernels/csrc/gemm.cu",
-             experts_src, TOP1_ARCH, "expert_batched_launches",
+            ("gemm_experts_top1", x1, gemm_src, experts_src, TOP1_ARCH,
+             "expert_batched_launches",
              f"E={x1['E']} M={x1['M']} K={x1['K']} N={x1['N']} bf16->bf16"),
-            ("gemm_experts_train_top1", x1t,
-             "src/repro_torch/kernels/csrc/gemm.cu", experts_src,
+            ("gemm_experts_train_top1", x1t, gemm_src, experts_src,
              f"train-blocks {TOP1_ARCH} ", "expert_batched_launches",
              f"E={x1t['E']} M={x1t['M']} K={x1t['K']} N={x1t['N']} "
              "bf16->bf16, forward of an autograd Function"),
-            ("flash_attention_h40", b40,
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:76", TOP1_ARCH,
-             "flash_attention",
-             f"B={b40['B']} h={b40['h']} kvh={b40['kvh']} S={b40['S']} "
-             f"hd={b40['hd']} causal bf16"),
-            ("gemm_train_gemma3", ag, "src/repro_torch/kernels/csrc/gemm.cu",
-             "src/repro/kernels/fp8_matmul.py:56",
+            ("flash_attention_h40", b40, flash_src, flash_tpu, TOP1_ARCH,
+             "flash_attention", flash_shape(b40)),
+            ("gemm_train_gemma3", ag, gemm_src, gemm_tpu,
              f"train-blocks {LOCAL_ARCH} ", "gemm",
              f"M={ag['M']} K={ag['K']} N={ag['N']} bf16->bf16"),
-            ("gemm_train_musicgen", am, "src/repro_torch/kernels/csrc/gemm.cu",
-             "src/repro/kernels/fp8_matmul.py:56",
+            ("gemm_train_musicgen", am, gemm_src, gemm_tpu,
              "train-blocks musicgen-medium ", "gemm",
-             f"M={am['M']} K={am['K']} N={am['N']} bf16->bf16")):
-        by_policy = {p: (r[key] if key == "expert_batched_launches"
-                         else r["launches"][key])
+             f"M={am['M']} K={am['K']} N={am['N']} bf16->bf16"),
+            ("gemm_wide", aw, gemm_src, gemm_tpu, wide, "gemm",
+             f"M={aw['M']} K={aw['K']} N={aw['N']} bf16->bf16"),
+            ("gemm_head_wide", ah, gemm_src, gemm_tpu, "llama3-405b ",
+             "head_launches",
+             f"M={ah['M']} K={ah['K']} N={ah['N']} bf16->f32"),
+            ("flash_attention_g8", b8, flash_src, flash_tpu,
+             ("chameleon-34b ", "deepseek-67b "), "flash_attention",
+             flash_shape(b8)),
+            ("flash_attention_g16", b16, flash_src, flash_tpu,
+             "llama3-405b ", "flash_attention", flash_shape(b16))):
+        by_policy = {p: (r["launches"][key] if key in r["launches"]
+                         else r[key])
                      for p, r in serve.items() if p.startswith(prefix)}
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces,
@@ -5853,6 +6155,12 @@ def parse_args(argv):
                     help="build, then run the [moe-top1] phase alone "
                          "(llama4-scout-17b-a16e served at 8 of its 48 "
                          "layers) and print no result line")
+    ap.add_argument("--dense-wide-only", action="store_true",
+                    help="build, then kernels A and B at [dense-wide]'s "
+                         "shapes and the [dense-wide] phase alone "
+                         "(chameleon-34b whole and through the serving "
+                         "CLI, deepseek-67b and llama3-405b at a depth "
+                         "cut) and print no result line")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to build and "
                          "measure (default: this checkout's); with "
@@ -5911,6 +6219,12 @@ def main() -> int:
         build_phase()
         serve_phase()
         return 0
+    if ARGS.dense_wide_only:
+        build_phase()
+        gemm_phase(WIDE_GEMM_SHAPES)
+        flash_phase(WIDE_FLASH_SHAPES)
+        dense_wide_phase()
+        return 0
     build_phase()
     gemm_rows = gemm_phase()
     expert_rows = expert_gemm_phase()
@@ -5924,14 +6238,17 @@ def main() -> int:
     serve = serve_phase()
     serve.update(moe_phase())
     serve.update(moe_top1_phase())
+    serve.update(dense_wide_phase())
     serve.update(local_phase())
     serve.update(ssm_phase())
     serve.update(hybrid_phase())
     train, train_rows, train_drow, train_summary = train_phase()
     serve.update(train)
+    dist_procs = dist_start()
     blocks, block_rows, _ = train_blocks_phase()
     serve.update(blocks)
-    serve.update(dist_phase(smi, train_summary, serve["bf16:dense:hopper"]))
+    serve.update(dist_phase(smi, train_summary, serve["bf16:dense:hopper"],
+                            dist_procs))
     # [profile]'s kernel A launches (occupancy, latency, timer check and
     # A/A block sweep under hopper) join A's entry of the kernels line
     serve["profile"] = {"launches": dict.fromkeys(launch_counts(), 0)}

@@ -32,6 +32,8 @@ LAUNCHES = 0
 TYPE_LAUNCHES = {"bf16": 0, "e4m3": 0, "e5m2": 0}
 # Of LAUNCHES, those of the expert-batched entry (fp8_matmul_batched).
 BATCHED_LAUNCHES = 0
+# The same launches by output width N (a stack's LM head has its own N).
+WIDTH_LAUNCHES: dict = {}
 
 _IN_TYPES = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 _TYPE_NAMES = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "e4m3",
@@ -76,10 +78,11 @@ def _check_operands(x, w, out_dtype, nd: int, want: str) -> None:
         raise ValueError("the GEMM kernel takes contiguous row-major operands")
 
 
-def _count(x: torch.Tensor) -> None:
+def _count(x: torch.Tensor, n: int) -> None:
     global LAUNCHES
     LAUNCHES += 1
     TYPE_LAUNCHES[_TYPE_NAMES[x.dtype]] += 1
+    WIDTH_LAUNCHES[n] = WIDTH_LAUNCHES.get(n, 0) + 1
 
 
 def fp8_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -109,7 +112,7 @@ def fp8_matmul(x: torch.Tensor, w: torch.Tensor,
             gemm_plan.launch_plan(M, N, K, "gemm", x.device), x.device,
             stream), stream)
     _build.check(status, "repro_gemm")
-    _count(x)
+    _count(x, N)
     return out
 
 
@@ -142,7 +145,7 @@ def fp8_matmul_batched(x: torch.Tensor, w: torch.Tensor,
             gemm_plan.launch_plan(M, N, K, "gemm", x.device, E), x.device,
             stream), stream)
     _build.check(status, "repro_gemm_batched")
-    _count(x)
+    _count(x, N)
     global BATCHED_LAUNCHES
     BATCHED_LAUNCHES += 1
     return out

@@ -204,13 +204,42 @@ def test_cuda_top1_expert_gemm_matches_plain(e, m, k, n):
         assert _rel(a, b) <= GEMM_REL_TOL[torch.bfloat16]
 
 
+# llama3-405b's down projection at decode and at a 128-token prefill (K =
+# 53248: 832 steps of 64 along K) and its head (K = 16384, N = 128256:
+# 2.10 G entries, 2.15% under 2^31), each output column checked
+WIDEST = [(4, 53248, 16384), (128, 53248, 16384), (4, 16384, 128256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", WIDEST)
+def test_cuda_gemm_at_the_widest_shapes_matches_plain(m, k, n):
+    """Kernel A at llama3-405b's widest K and largest operand against its
+    plain twin in both output types (GEMM_REL_TOL over the whole output),
+    one launch, and a second call bit-equal to the first."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((k, n), generator=gen, device="cuda")
+         * k ** -0.5).bfloat16()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = fm.LAUNCHES
+        got = fm.fp8_matmul(x, w, out_dtype)
+        assert fm.LAUNCHES == before + 1
+        assert got.shape == (m, n) and bool(torch.isfinite(got).all())
+        assert _rel(got, fm.fp8_matmul_plain(x, w, out_dtype)) \
+            <= GEMM_REL_TOL[out_dtype]
+        assert _same_bits(got, fm.fp8_matmul(x, w, out_dtype))
+
+
 # (group, hd, s, kv heads): two kv heads at every S, head dim and group,
-# zamba2-1.2b's shared-attention prefill (32 heads of 64, group 1) and
-# llama4-scout's (40 heads over 8 kv heads of 128: group 5)
+# zamba2-1.2b's shared-attention prefill (32 heads of 64, group 1),
+# llama4-scout's (40 heads over 8 kv heads of 128: group 5),
+# chameleon-34b's and deepseek-67b's (64 over 8: group 8) and
+# llama3-405b's (128 over 8: group 16)
 FLASH_CASES = [(g, hd, s, 2) for g in (1, 4, 8) for hd in (32, 64, 128, 256)
                for s in (1, 77, 128, 200, 512, 1040)] \
     + [(1, 64, 128, 32), (1, 64, 512, 32)] \
-    + [(5, 128, s, 8) for s in (77, 128)]
+    + [(g, 128, s, 8) for g in (5, 8, 16) for s in (77, 128)]
 
 
 @pytest.mark.cuda

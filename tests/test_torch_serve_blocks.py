@@ -1,8 +1,10 @@
-"""Greedy serving of the MoE and local/global stacks against the JAX
-ServeSession: the reduced granite-moe-3b-a800m (40 → 8 experts, top-2),
-llama4-scout-17b-a16e (top-1 with a shared expert) and gemma3-12b (5 local
-: 1 global, window 64), dense and paged, and a slot handoff that carries a
-rolling window.
+"""Greedy serving of the MoE, local/global and widest dense stacks against
+the JAX ServeSession: the reduced granite-moe-3b-a800m (40 → 8 experts,
+top-2), llama4-scout-17b-a16e (top-1 with a shared expert) and gemma3-12b
+(5 local : 1 global, window 64), dense and paged; chameleon-34b (an
+embeddings-input stack, served from its token table) and deepseek-67b
+dense; llama3-405b (8 query heads over 2 kv heads of 16) dense and paged;
+and a slot handoff that carries a rolling window.
 
 Both sessions serve the same requests from the same JAX init (bridged bit
 for bit). In f32 the tokens must be equal; in bf16 a token may flip only
@@ -28,11 +30,19 @@ from repro_torch.models import transformer as tt
 from repro_torch.models.layers import RuntimeCfg as TRt
 from repro_torch.runtime import serve_loop as tsl
 from test_torch_serve import NEAR_TIE, _run_port
+from torch_train_parity import one_torch_thread  # noqa: F401 (a fixture)
 
-ARCHS = ["granite-moe-3b-a800m", "llama4-scout-17b-a16e", "gemma3-12b"]
+ARCHS = ["granite-moe-3b-a800m", "llama4-scout-17b-a16e", "gemma3-12b",
+         "chameleon-34b", "deepseek-67b", "llama3-405b"]
 PROMPT_LENS = {"granite-moe-3b-a800m": (5, 40, 64, 8),
                "llama4-scout-17b-a16e": (5, 40, 64, 8),
-               "gemma3-12b": (70, 8, 40, 5)}
+               "gemma3-12b": (70, 8, 40, 5),
+               "chameleon-34b": (5, 40, 64, 8),
+               "deepseek-67b": (5, 40, 64, 8),
+               "llama3-405b": (5, 40, 64, 8)}
+# the widest dense stacks share one paged layout, held on llama3-405b alone
+F32_CASES = [(arch, paged) for arch in ARCHS for paged in (False, True)
+             if not paged or arch not in ("chameleon-34b", "deepseek-67b")]
 MAX_NEW, MAX_LEN, SLOTS, PAGE = 6, 96, 2, 16
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -66,8 +76,7 @@ def _serve_both(arch, dtype, paged):
     return want, got, margins
 
 
-@pytest.mark.parametrize("paged", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,paged", F32_CASES)
 def test_greedy_tokens_match_jax_in_f32(arch, paged):
     want, got, _ = _serve_both(arch, "f32", paged)
     assert sorted(got) == sorted(want) == [0, 1, 2, 3]
@@ -136,19 +145,25 @@ def test_handoff_carries_the_rolling_window(paged):
 
 
 def test_block_kinds_admitted_and_refused():
-    """Every arch's block kinds are admitted: the attention-style stacks
-    with no state blocks for the pager to account (their windows are
-    slot-indexed K/V, as in JAX), and the recurrent ones (rwkv6;
-    zamba2's mamba2, shared attention and hybrid tail) with JAX's state
-    block size. A block kind the port does not know is refused."""
+    """Every arch's block kinds are admitted (all of ``ARCH_NAMES``, full
+    and reduced): the attention-style stacks with no state blocks for the
+    pager to account (their windows are slot-indexed K/V, as in JAX), and
+    the recurrent ones (rwkv6; zamba2's mamba2, shared attention and
+    hybrid tail) with JAX's state block size. A block kind the port does
+    not know is refused."""
     import types
     from repro.core import paging as jpaging
+    from repro_torch.configs import ARCH_NAMES, get_arch
     from repro_torch.core import paging as tpaging
-    for arch in ARCHS + ["llama3-8b"]:
+    recurrent = ("rwkv6-3b", "zamba2-1.2b")
+    assert set(ARCHS + ["llama3-8b"] + list(recurrent)) < set(ARCH_NAMES)
+    for arch in ARCH_NAMES:
+        tt.check_supported(get_arch(arch))
         tt.check_supported(t_get_reduced(arch))
-        assert tpaging.state_block_tokens(t_get_reduced(arch)) == 0 == \
-            jpaging.state_block_tokens(get_reduced(arch))
-    for arch in ("rwkv6-3b", "zamba2-1.2b"):
+        if arch not in recurrent:
+            assert tpaging.state_block_tokens(t_get_reduced(arch)) == 0 \
+                == jpaging.state_block_tokens(get_reduced(arch))
+    for arch in recurrent:
         cfg = t_get_reduced(arch)
         tt.check_supported(cfg)
         assert tpaging.state_block_tokens(cfg) == \

@@ -50,7 +50,8 @@ def smoke():
     ("zamba2-1.2b", "bf16:dense:hopper_sparse24"),
     ("rwkv6-3b", "bf16:dense:hopper"),
     ("gemma3-12b", "bf16:dense:hopper"),
-    ("musicgen-medium", "bf16:dense:hopper")])
+    ("musicgen-medium", "bf16:dense:hopper"),
+    ("chameleon-34b", "bf16:dense:hopper")])
 def test_launches_expected_counts_each_block_kind(smoke, monkeypatch, arch,
                                                   spec):
     check_one_step(smoke, monkeypatch, arch, spec, 64)
@@ -87,7 +88,7 @@ def check_one_step(smoke, monkeypatch, arch, spec, seq):
     step = ttl.make_train_step(cfg, opt, RuntimeCfg(),
                                policy=tex.parse_policy(spec))
     tokens = torch.randint(0, cfg.vocab_size, (1, seq))
-    # an embeddings-input stack (musicgen) reads (B, S, d) frames
+    # an embeddings-input stack (musicgen, chameleon) reads (B, S, d) frames
     inputs = torch.randn((1, seq, cfg.d_model)) \
         if cfg.input_mode == "embeddings" else tokens
     step(state, {"inputs": inputs, "labels": tokens})
@@ -128,7 +129,7 @@ def test_head_launches_once_per_checkpointed_ce_chunk(smoke):
 
 @pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "gemma3-12b",
-                                  "musicgen-medium"])
+                                  "musicgen-medium", "chameleon-34b"])
 def test_train_bytes_reckons_the_state_byte_for_byte(smoke, arch, moments):
     """``train_bytes`` (the card's reckoning before a step runs, from a
     shape-only tree) against the state ``init_state`` allocates for a
