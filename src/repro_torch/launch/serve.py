@@ -198,7 +198,7 @@ def main(argv=None):
         print(f"[serve] autotune artifact "
               f"{'loaded: ' + store.path if store else 'not found'}")
     want_tracer = args.telemetry or args.metrics_out or args.trace_out
-    tracer = telemetry.Tracer() if want_tracer else None
+    tracer = telemetry.Tracer(phases=True) if want_tracer else None
     if tracer is not None:
         telemetry.set_tracer(tracer)    # observe policy resolutions
 

@@ -65,7 +65,8 @@ def build_argparser():
     ap.add_argument("--fail-at-step", type=int, default=0,
                     help="(testing) crash at this step to exercise restart")
     ap.add_argument("--telemetry", action="store_true",
-                    help="record per-step wall times; print the telemetry "
+                    help="record each step's span and its forward, backward "
+                         "and optimizer phases; print the telemetry "
                          "summary at exit")
     ap.add_argument("--autotune", action="store_true",
                     help="load the persistent autotune artifact "
@@ -94,7 +95,7 @@ def run_once(args) -> int:
     if args.autotune:
         print(f"[train] autotune artifact "
               f"{'loaded: ' + store.path if store else 'not found'}")
-    tracer = telemetry.Tracer() if args.telemetry else None
+    tracer = telemetry.Tracer(phases=True) if args.telemetry else None
 
     cfg = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
     if args.precision:
@@ -166,9 +167,6 @@ def run_once(args) -> int:
             state, metrics = train_step(state, batch)
             loss = float(metrics["loss"])          # waits for the step
             st = monitor.record(step, time.time() - t0)
-            if tracer is not None:
-                tracer.record("train_step", step=step,
-                              wall_s=st.duration_s, meta={"loss": loss})
             losses.append(loss)
             if hb:
                 hb.beat(step)

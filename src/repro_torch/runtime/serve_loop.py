@@ -68,7 +68,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +84,7 @@ from repro_torch.models.layers import DEFAULT_RT, RuntimeCfg
 from repro_torch.models.transformer import (
     PAGED_KINDS, Caches, decode_step, init_cache, init_paged_cache,
     layer_kinds, paged_decode_step, prefill, state_layers)
+from repro_torch.runtime.telemetry import phase
 
 resolve_device = cc.resolve_device
 
@@ -349,7 +350,9 @@ class DecodeTicket:
     oom_done: List[Request]
     lane: str = ""
     overlap_group: int = -1
-    t0: float = 0.0
+    # the step's ``decode`` span, open from the dispatch's entry to the
+    # join's return (None without a tracer)
+    span: Optional[Any] = None
     # Speculative decode: the depth this step ran at (1 = plain decode)
     # and the draft chain's own lane handle.
     spec_k: int = 1
@@ -391,9 +394,18 @@ class ServeSession:
     for the decode GEMM (slots, d_model, d_ff), latency-sensitive, one
     tenant per slot; ``auto_backend`` overrides the backend it picks) or
     None. ``telemetry`` is a
-    :class:`~repro_torch.runtime.telemetry.Tracer` (duck-typed) that
-    receives the session's ``prefill``, ``decode``, ``spec`` and
-    ``paging`` events.
+    :class:`~repro_torch.runtime.telemetry.Tracer` that receives the
+    session's ``prefill`` and ``decode`` spans and its ``spec`` and
+    ``paging`` events. ``prefill`` spans ``admit`` from its entry through
+    the slot's cache write; ``decode`` spans a step from
+    ``dispatch_decode``'s entry to ``join_decode``'s return. A tracer
+    built with ``phases=True`` also records their phases:
+    ``prefill.forward`` (the prefill enqueued), ``prefill.first_token``
+    (its token drawn and read on the host), ``prefill.cache_write``;
+    ``decode.dispatch`` (page growth, the key split and every launch of
+    the step enqueued, draft and verify too), ``decode.wait`` (the join
+    and the tokens' host read), ``decode.commit`` (positions, tokens,
+    finishes and the finished slots' cache clears).
     """
 
     def __init__(self, params, cfg: ArchConfig, *, batch_slots: int,
@@ -553,6 +565,8 @@ class ServeSession:
         ``max_new == 1``). Paged: raises ``PagesExhausted`` if the pool
         cannot hold the prompt plus one position (gate on
         :meth:`can_admit`)."""
+        tr = self.tracer
+        span = None if tr is None else tr.span("prefill")
         slot = next((i for i, s in enumerate(self.slots) if s is None), None)
         if slot is None:
             raise RuntimeError("admit() with no free slot")
@@ -565,32 +579,32 @@ class ServeSession:
             page_ids = self.pager.alloc_slot(slot, lp + 1)
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None, :]
-        t0 = time.perf_counter()
-        with self._policy_scope():
+        with phase(tr, "prefill.forward", span), self._policy_scope():
             logits, pcaches = self.prefill_fn(self.params, prompt)
-        if self.temperature > 0:
-            # the reference divides here outside its jitted step: a true
-            # float32 division (a device scalar: CUDA would multiply by
-            # the reciprocal of a host one)
-            self.rng, self.last_key = prng.split(self.rng)
-            scaled = logits[0] / logits.new_full((), self.temperature)
-            tok = int(prng.categorical(self.last_key, scaled))
-        else:
-            tok = int(torch.argmax(logits[0]))  # waits for the prefill
-        if self.tracer is not None:
-            self.tracer.record(
-                "prefill", m=lp, k=self.cfg.d_model, n=self.cfg.d_ff,
-                precision=self.cfg.precision, **self._policy_tag(),
-                wall_s=time.perf_counter() - t0,
-                tenant=req.tenant or "", meta={"uid": req.uid, "slot": slot})
-        if self.paged:
-            _paged_write_prompt(self._pooled, self.caches, pcaches, slot,
-                                self._phys_padded(page_ids))
-            self._sync_page_map()
-            self.pager.record(self.tracer, phase="admit", slot=slot,
-                              tenant=req.tenant or "", uid=req.uid)
-        else:
-            _write_slot_cache(self.caches, pcaches, slot)
+        with phase(tr, "prefill.first_token", span):
+            if self.temperature > 0:
+                # the reference divides here outside its jitted step: a
+                # true float32 division (a device scalar: CUDA would
+                # multiply by the reciprocal of a host one)
+                self.rng, self.last_key = prng.split(self.rng)
+                scaled = logits[0] / logits.new_full((), self.temperature)
+                tok = int(prng.categorical(self.last_key, scaled))
+            else:
+                tok = int(torch.argmax(logits[0]))  # waits for the prefill
+        with phase(tr, "prefill.cache_write", span):
+            if self.paged:
+                _paged_write_prompt(self._pooled, self.caches, pcaches, slot,
+                                    self._phys_padded(page_ids))
+                self._sync_page_map()
+                self.pager.record(tr, phase="admit", slot=slot,
+                                  tenant=req.tenant or "", uid=req.uid)
+            else:
+                _write_slot_cache(self.caches, pcaches, slot)
+        if span is not None:
+            span.end(m=lp, k=self.cfg.d_model, n=self.cfg.d_ff,
+                     precision=self.cfg.precision, **self._policy_tag(),
+                     tenant=req.tenant or "",
+                     meta={"uid": req.uid, "slot": slot})
         self.last_logits = logits
         self.slots[slot] = req
         self.slot_pos[slot] = lp
@@ -816,6 +830,25 @@ class ServeSession:
                 "ticket before dispatching another step")
         if self.n_active == 0:
             return DecodeTicket(handle=None, oom_done=[])
+        lane = lane if lane is not None else self._default_lane()
+        tr = self.tracer
+        span = None if tr is None else tr.span(
+            "decode", m=self.batch_slots, k=self.cfg.d_model,
+            n=self.cfg.d_ff, precision=self.cfg.precision,
+            **self._policy_tag(), lane=lane.name,
+            overlap_group=overlap_group)
+        with phase(tr, "decode.dispatch", span) as disp:
+            ticket = self._dispatch(lane, overlap_group)
+            if ticket.handle is None and disp is not None:
+                disp.cancel()      # every slot finished: no step ran
+        if ticket.handle is not None:
+            ticket.span = span
+        return ticket
+
+    def _dispatch(self, lane: cc.ExecutionLane,
+                  overlap_group: int) -> DecodeTicket:
+        """:meth:`dispatch_decode` past its checks: page growth, the key
+        split and the step's launches on ``lane``."""
         k = self._next_spec_k()
         oom_done: List[Request] = []
         if self.paged:
@@ -827,8 +860,6 @@ class ServeSession:
         # one split per dispatched step, sampled or not, as the reference
         self.rng, sub = prng.split(self.rng)
         self.last_key = sub
-        lane = lane if lane is not None else self._default_lane()
-        t0 = time.perf_counter()
         # staged from host memory at once; slot_pos changes only in the join
         posv = torch.as_tensor(self.slot_pos.astype(np.int64),
                                device=self.device)
@@ -859,7 +890,7 @@ class ServeSession:
                                        after=(dh,))
             ticket = DecodeTicket(handle=handle, oom_done=oom_done,
                                   lane=lane.name,
-                                  overlap_group=overlap_group, t0=t0,
+                                  overlap_group=overlap_group,
                                   spec_k=k, draft_handle=dh)
             self._inflight = ticket
             return ticket
@@ -871,53 +902,51 @@ class ServeSession:
                                      *paged, sub),
                 label="decode", overlap_group=overlap_group)
         ticket = DecodeTicket(handle=handle, oom_done=oom_done,
-                              lane=lane.name, overlap_group=overlap_group,
-                              t0=t0)
+                              lane=lane.name, overlap_group=overlap_group)
         self._inflight = ticket
         return ticket
 
-    def _record_decode(self, ticket: DecodeTicket, **meta) -> None:
-        if self.tracer is None:
-            return
-        self.tracer.record(
-            "decode", m=self.batch_slots, k=self.cfg.d_model,
-            n=self.cfg.d_ff, precision=self.cfg.precision,
-            **self._policy_tag(),
-            wall_s=time.perf_counter() - ticket.t0,
-            lane=ticket.lane, overlap_group=ticket.overlap_group,
-            meta={"n_active": self.n_active, **meta,
-                  "dispatch_to_ready_s": ticket.handle.dispatch_to_ready_s})
+    def _end_decode(self, ticket: DecodeTicket, n_active: int,
+                    **meta) -> None:
+        if ticket.span is not None:
+            ticket.span.end(meta={
+                "n_active": n_active, **meta,
+                "dispatch_to_ready_s": ticket.handle.dispatch_to_ready_s})
 
     def join_decode(self, ticket: DecodeTicket) -> List[Request]:
         """Join half of a decode step: wait on the ticket's event, then the
-        host-side token accounting. Records the ``decode`` event with the
-        lane and overlap group the step ran under. Returns the requests
-        that completed (paged: those the pool truncated first)."""
+        host-side token accounting. Ends the step's ``decode`` span, with
+        the lane and overlap group the step ran under. Returns the
+        requests that completed (paged: those the pool truncated
+        first)."""
         self._inflight = None
         if ticket.handle is None:
             return list(ticket.oom_done)
         if ticket.spec_k > 1:
             return self._join_spec(ticket)
-        nxt, logits, self.caches = ticket.handle.join()
-        nxt_np = nxt[:, 0].cpu().numpy()
-        self._record_decode(ticket)
-        self.last_logits = logits
-        self.tokens = nxt
+        with phase(self.tracer, "decode.wait", ticket.span):
+            nxt, logits, self.caches = ticket.handle.join()
+            nxt_np = nxt[:, 0].cpu().numpy()
+        n_active = self.n_active
         done = list(ticket.oom_done)
-        for i, req in enumerate(self.slots):
-            if req is None:
-                continue
-            self.slot_pos[i] += 1
-            tok = int(nxt_np[i])
-            req.out.append(tok)
-            if self._maybe_finish(i, tok):
-                done.append(req)
-            elif self.paged:
-                # utilization accounting: positions written so far plus
-                # the pending next write
-                self.pager.note_tokens(i, int(self.slot_pos[i]) + 1)
-        if self.adaptive_k is not None:
-            self.adaptive_k.on_step()
+        with phase(self.tracer, "decode.commit", ticket.span):
+            self.last_logits = logits
+            self.tokens = nxt
+            for i, req in enumerate(self.slots):
+                if req is None:
+                    continue
+                self.slot_pos[i] += 1
+                tok = int(nxt_np[i])
+                req.out.append(tok)
+                if self._maybe_finish(i, tok):
+                    done.append(req)
+                elif self.paged:
+                    # utilization accounting: positions written so far
+                    # plus the pending next write
+                    self.pager.note_tokens(i, int(self.slot_pos[i]) + 1)
+            if self.adaptive_k is not None:
+                self.adaptive_k.on_step()
+        self._end_decode(ticket, n_active)
         return done
 
     def _join_spec(self, ticket: DecodeTicket) -> List[Request]:
@@ -925,10 +954,20 @@ class ServeSession:
         prefix and the verify's token, record the acceptance, and (paged)
         trim the candidate pages the verify already scrubbed. The caches
         were rolled back in place before the host reads the counts."""
-        nxt, greedy, n_acc, self.caches, logits = ticket.handle.join()
+        with phase(self.tracer, "decode.wait", ticket.span):
+            nxt, greedy, n_acc, self.caches, logits = ticket.handle.join()
+            host = torch.cat([greedy, n_acc[:, None]], dim=1).cpu().numpy()
+        n_active = self.n_active
+        with phase(self.tracer, "decode.commit", ticket.span):
+            done = self._commit_spec(ticket, nxt, logits, host)
+        self._end_decode(ticket, n_active, spec_k=ticket.spec_k)
+        return done
+
+    def _commit_spec(self, ticket: DecodeTicket, nxt, logits,
+                     host: np.ndarray) -> List[Request]:
+        """The host's side of a joined speculative step (``host``: each
+        slot's greedy row and accepted count)."""
         k = ticket.spec_k
-        host = torch.cat([greedy, n_acc[:, None]], dim=1).cpu().numpy()
-        self._record_decode(ticket, spec_k=k)
         self.last_logits = logits
         self.tokens = nxt
         done, trimmed = list(ticket.oom_done), False

@@ -14,11 +14,26 @@ half of the closed loop (the acting half is
   the observed GEMMs), per-shape latency EMAs, per-tenant request counts
   and p50/p99, fairness/overlap over tenants.
 
+* :class:`Span` — a timed stretch of the program, opened by
+  :meth:`Tracer.span` and recorded at its end as an ordinary
+  :class:`Event` (``t`` its end, ``wall_s`` its length) whose meta holds
+  its ``span`` id and its ``parent``'s (the innermost span open on the
+  thread, or -1). A span may also be timed on the device
+  (``device_time``): its meta then gains ``device_s``, read from two CUDA
+  events once the device has passed both.
+
 Producers: ``core/execution.matmul``/``resolve_policy`` (trace-time shape
 and policy events), ``core/concurrency.characterize_streams`` (per-stream
 wall times), ``runtime/scheduler.StreamScheduler`` (admission + request
-completion per tenant), ``ServeSession`` (prefill/decode wall times), and
-``runtime/train_loop``/``launch/train.py`` (per-step wall times).
+completion per tenant), ``ServeSession`` (``prefill`` and ``decode``
+spans), and ``runtime/train_loop`` (``train_step`` spans).
+
+Phase spans — ``prefill.forward``/``.first_token``/``.cache_write``,
+``decode.dispatch``/``.wait``/``.commit`` and
+``train_step.forward``/``.backward``/``.optimizer`` (device-timed on a
+card) — are recorded only by a tracer built with ``phases=True``
+(:func:`phase`), so a tracer built as the reference builds it sees the
+reference's event stream.
 
 An *ambient* tracer can be installed with :func:`set_tracer` so deep call
 sites (every ``dense()`` in the model stack) need no plumbing; harness
@@ -26,7 +41,9 @@ code that owns its tracer passes it explicitly instead.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import threading
 import time
 import warnings
@@ -34,6 +51,7 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import concurrency as cc
 
@@ -78,6 +96,72 @@ class Event:
         return dataclasses.asdict(self)
 
 
+class Span:
+    """One open span of a :class:`Tracer` (:meth:`Tracer.span`).
+
+    Used as a context manager, it is the innermost open span of its
+    thread until it exits, and is recorded then; an exception drops it
+    unrecorded. Otherwise :meth:`end` records it, from any thread (a
+    decode step opens in ``dispatch_decode`` and ends in
+    ``join_decode``). A child opened with this span as its ``parent``
+    takes its lane, so the Chrome trace draws it on the same track."""
+
+    __slots__ = ("tracer", "kind", "fields", "id", "parent", "lane", "t0",
+                 "cancelled", "_start")
+
+    def __init__(self, tracer: "Tracer", kind: str, parent: Optional["Span"],
+                 device_time: bool, fields: Dict[str, Any]):
+        self.tracer = tracer
+        self.kind = kind
+        self.fields = fields
+        self.id = next(tracer._ids)
+        self.parent = -1 if parent is None else parent.id
+        self.lane = fields.get("lane") or (parent.lane if parent else "")
+        self.cancelled = False
+        self._start = None
+        if device_time:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        self.t0 = time.perf_counter()
+
+    def __enter__(self) -> "Span":
+        self.tracer._open_stack().append(self)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.tracer._open_stack().remove(self)
+        if exc_type is None and not self.cancelled:
+            self.end()
+        return False
+
+    def cancel(self) -> None:
+        """Leave this span unrecorded when its ``with`` block exits."""
+        self.cancelled = True
+
+    def end(self, **fields) -> Event:
+        """Record the span: ``fields`` (an ``Event``'s) join those it was
+        opened with, ``meta`` merged into theirs."""
+        t1 = time.perf_counter()
+        stop = None
+        if self._start is not None:
+            stop = torch.cuda.Event(enable_timing=True)
+            stop.record()
+        tr = self.tracer
+        meta = {**self.fields.get("meta", {}), **fields.pop("meta", {}),
+                "span": self.id, "parent": self.parent}
+        f = {**self.fields, **fields, "meta": meta}
+        f.setdefault("partition", tr.partition)
+        if self.lane:
+            f["lane"] = self.lane
+        ev = Event(kind=self.kind, t=t1, wall_s=t1 - self.t0, **f)
+        tr._ingest(ev)
+        if stop is not None:
+            with tr._lock:
+                tr._timed.append((ev, self._start, stop))
+            tr._resolve_device(wait=False)
+        return ev
+
+
 class Tracer:
     """Bounded event recorder with aggregate views.
 
@@ -88,11 +172,12 @@ class Tracer:
     (:meth:`events`, :meth:`tenant_latencies`/:meth:`tenant_percentiles`,
     :meth:`occupancy_histogram`) cover the retained window only.
     Thread-safe: the serving loop, stream runners, and host callbacks may
-    record concurrently.
+    record concurrently. ``phases`` turns on the phase spans inside
+    prefill, decode and the training step (:func:`phase`).
     """
 
     def __init__(self, capacity: int = 4096, ema_alpha: float = 0.25,
-                 partition: int = -1):
+                 partition: int = -1, phases: bool = False):
         if capacity <= 0:
             raise ValueError("capacity must be positive")
         self.capacity = capacity
@@ -101,6 +186,7 @@ class Tracer:
         # doesn't carry one (a per-partition tracer inside PartitionedServer
         # tags its whole stream so Tracer.merge keeps provenance).
         self.partition = partition
+        self.phases = phases
         self._ring: deque = deque(maxlen=capacity)
         self._counts: Dict[str, int] = {}
         self._tenant_counts: Dict[Tuple[str, str], int] = {}
@@ -109,6 +195,11 @@ class Tracer:
         self._warned_drop = False
         self._sinks: List[Any] = []          # duck-typed: on_event/on_drop
         self._lock = threading.Lock()
+        self._ids = itertools.count()        # span ids
+        self._local = threading.local()      # each thread's open spans
+        # device-timed spans whose CUDA events are not read yet, in the
+        # order of their ends: (event, start, stop)
+        self._timed: List[Tuple[Event, Any, Any]] = []
 
     # -- sinks (the metrics plane subscribes here) --------------------------
     def add_sink(self, sink) -> "Tracer":
@@ -210,8 +301,50 @@ class Tracer:
         meta.update(src=src, dst=dst, phase=phase)
         return self.record("migrate", tenant=tenant, step=step, meta=meta)
 
+    # -- spans ----------------------------------------------------------------
+    def span(self, kind: str, *, parent: Optional[Span] = None,
+             device_time: bool = False, **fields) -> Span:
+        """Open a span of ``kind`` now. ``fields`` are an ``Event``'s
+        (more may be given to :meth:`Span.end`). Its parent is ``parent``,
+        else the innermost span open on this thread. ``device_time``
+        (a CUDA run) records a CUDA event on the current stream at each
+        end; the device's time between them becomes ``meta["device_s"]``
+        once both have passed, read without waiting as later spans end,
+        and waited for when the tracer's events are read."""
+        if parent is None:
+            stack = self._open_stack()
+            parent = stack[-1] if stack else None
+        return Span(self, kind, parent, device_time, fields)
+
+    def _open_stack(self) -> List[Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _resolve_device(self, wait: bool) -> None:
+        """Write ``device_s`` into each device-timed span whose stop event
+        the device has passed (``wait``: every one, waiting for it). One
+        stream passes its events in order, so the first not yet passed
+        ends a pass that does not wait."""
+        while True:
+            with self._lock:
+                if not self._timed:
+                    return
+                ev, start, stop = self._timed[0]
+            if wait:
+                stop.synchronize()
+            elif not stop.query():
+                return
+            ev.meta["device_s"] = start.elapsed_time(stop) / 1e3
+            with self._lock:
+                if self._timed and self._timed[0][0] is ev:
+                    self._timed.pop(0)
+
     # -- raw views ----------------------------------------------------------
     def events(self, kind: Optional[str] = None) -> List[Event]:
+        if self._timed:
+            self._resolve_device(wait=True)
         with self._lock:
             evs = list(self._ring)
         return evs if kind is None else [e for e in evs if e.kind == kind]
@@ -512,3 +645,17 @@ def set_tracer(tracer: Optional[Tracer]) -> Optional[Tracer]:
 
 def get_tracer() -> Optional[Tracer]:
     return _GLOBAL
+
+
+# What :func:`phase` returns where nothing is recorded: one shared null
+# context, so an untraced call site allocates nothing.
+NO_SPAN = contextlib.nullcontext()
+
+
+def phase(tracer: Optional[Tracer], kind: str, parent: Optional[Span] = None,
+          **kw):
+    """A phase span of ``tracer`` to use with ``with``, or
+    :data:`NO_SPAN` when there is no tracer or it records no phases."""
+    if tracer is None or not tracer.phases:
+        return NO_SPAN
+    return tracer.span(kind, parent=parent, **kw)

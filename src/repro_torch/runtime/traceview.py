@@ -13,12 +13,13 @@ Mapping:
   lane within it (``tid 0`` is the partition's control/scheduler track)
   — so the fig21 question "did those two lanes actually overlap?" is
   answered by looking;
-* ``decode`` / ``prefill`` / ``matmul`` / ``stream`` events with a
-  measured ``wall_s`` become complete duration slices (``ph="X"``).
-  Events are recorded at *join* time, so a slice starts at
-  ``ev.t - ev.wall_s`` ≈ its dispatch — two planner-paired decode steps
-  therefore appear as temporally overlapping slices on their two lane
-  tracks, which is the whole point;
+* ``decode`` / ``prefill`` / ``matmul`` / ``stream`` events and spans
+  (events whose meta holds a ``span`` id) with a measured ``wall_s``
+  become complete duration slices (``ph="X"``). Events are recorded at
+  *join* time, so a slice starts at ``ev.t - ev.wall_s`` ≈ its dispatch
+  — two planner-paired decode steps therefore appear as temporally
+  overlapping slices on their two lane tracks, which is the whole point.
+  A span's phases take its lane, so they nest under it on its track;
 * ``migrate`` handoffs become flow (arrow) events between the source
   and destination partition tracks (the runtime records each phase on
   *both* endpoint tracers, which is exactly what lets one export bind
@@ -114,7 +115,7 @@ def to_chrome_trace(tracer, *, include_instants: bool = True) -> Dict[str, Any]:
     for ev in events:
         pid = _pid(ev.partition)
         tid = lanes[pid].get(ev.lane, 0)
-        if ev.kind in SLICE_KINDS and ev.wall_s > 0:
+        if ev.wall_s > 0 and (ev.kind in SLICE_KINDS or "span" in ev.meta):
             name = ev.kind
             if ev.kind in ("decode", "prefill", "matmul") and ev.m:
                 name = f"{ev.kind} {ev.m}x{ev.k}x{ev.n}"

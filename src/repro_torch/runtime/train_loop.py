@@ -33,6 +33,7 @@ from repro_torch.models.layers import DEFAULT_RT, RuntimeCfg, lm_logits
 from repro_torch.models.transformer import forward_hidden, reference_leaves
 from repro_torch.optim import adamw
 from repro_torch.optim import grad_compress as gc
+from repro_torch.runtime import telemetry as tm
 
 AUX_LOSS_WEIGHT = 0.01
 CE_CHUNK = 512         # seq-chunked fused LM-head loss (never materializes
@@ -115,15 +116,22 @@ def state_shape(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
 def value_and_grad(loss_fn):
     """``jax.value_and_grad(loss_fn, has_aux=True)`` for a tree of params:
     ((loss, metrics), grads), the grads in the params' dtypes; a leaf the
-    loss does not reach gets zeros, as in JAX."""
+    loss does not reach gets zeros, as in JAX. An ambient tracer that
+    records phases (``telemetry.set_tracer``) gets a
+    ``train_step.forward`` and a ``train_step.backward`` span per call,
+    timed on the device on a card."""
     def fn(params, batch):
         flat = tree.leaves(params)
         diff = [p.detach().requires_grad_(True) for p in flat]
         it = iter(diff)
+        tr = tm.get_tracer()
+        on_card = bool(flat) and flat[0].is_cuda
         with torch.enable_grad():
-            loss, metrics = loss_fn(
-                tree.map_tree(lambda _: next(it), params), batch)
-            grads = torch.autograd.grad(loss, diff, allow_unused=True)
+            with tm.phase(tr, "train_step.forward", device_time=on_card):
+                loss, metrics = loss_fn(
+                    tree.map_tree(lambda _: next(it), params), batch)
+            with tm.phase(tr, "train_step.backward", device_time=on_card):
+                grads = torch.autograd.grad(loss, diff, allow_unused=True)
         grads = iter([torch.zeros_like(p) if g is None else g
                       for p, g in zip(flat, grads)])
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -151,9 +159,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     ``rt.use_pallas``, which also routes attention through the
     forward-only flash kernel, which refuses gradients.
 
-    ``telemetry`` (a :class:`repro_torch.runtime.telemetry.Tracer`,
-    duck-typed) records a ``train_build`` event and is installed as the
-    ambient tracer while each step runs. The step's state is updated in
+    ``telemetry`` (a :class:`repro_torch.runtime.telemetry.Tracer`)
+    records a ``train_build`` event and a ``train_step`` span per step,
+    and is installed as the ambient tracer while each step runs. Built
+    with ``phases=True`` it also records, inside the step,
+    ``train_step.forward`` and ``train_step.backward`` (one each per
+    microbatch chunk) and ``train_step.optimizer`` (gradient compression
+    and ``adamw.apply``); on a card each carries ``meta["device_s"]``,
+    its length on the device's timeline. The step's state is updated in
     place (``adamw.apply``) and returned."""
     if grad_compress not in GRAD_COMPRESS:
         raise ValueError(f"grad_compress {grad_compress!r} not in "
@@ -202,13 +215,16 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
         grads, metrics = compute_grads(state.params, batch)
         ref = reference_layout(state.params)
         new_err = state.grad_error
-        if grad_compress == "bf16":
-            grads = gc.compress_bf16(grads)
-        elif grad_compress == "int8_ef":
-            grads, new_err = gc.compress_int8_ef(grads, state.grad_error,
-                                                 ref["groups"])
-        new_params, new_opt, opt_metrics = adamw.apply(
-            state.params, grads, state.opt, opt_cfg, ref["decay"])
+        on_card = batch["labels"].is_cuda
+        with tm.phase(telemetry, "train_step.optimizer",
+                      device_time=on_card):
+            if grad_compress == "bf16":
+                grads = gc.compress_bf16(grads)
+            elif grad_compress == "int8_ef":
+                grads, new_err = gc.compress_int8_ef(
+                    grads, state.grad_error, ref["groups"])
+            new_params, new_opt, opt_metrics = adamw.apply(
+                state.params, grads, state.opt, opt_cfg, ref["decay"])
         return (TrainState(new_params, new_opt, new_err),
                 {**metrics, **opt_metrics})
 
@@ -216,10 +232,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
         return train_step
 
     def traced_step(state: TrainState, batch):
-        from repro_torch.runtime import telemetry as tm
         prev = tm.set_tracer(telemetry)
         try:
-            return train_step(state, batch)
+            with telemetry.span("train_step"):
+                return train_step(state, batch)
         finally:
             tm.set_tracer(prev)
 
