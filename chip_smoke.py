@@ -4065,16 +4065,20 @@ def train_launches_expected(cfg, spec: str, steps: int,
     shared expert 3 more; 6 per mamba2 layer; 9 per rwkv6 layer). The
     stack's super-layers and each CE chunk are checkpointed (``remat``
     "full" or "dots"), so each of their launches runs once forward and
-    once more in backward; the hybrid tail runs outside them, once;
-    backward itself runs the torch reference. The LM head once per CE
-    chunk, on kernel A in bf16 whatever the policy. Under
-    ``hopper_sparse24`` every linear is kernel D, a MoE layer's experts
-    one launch each."""
+    once more in backward; the hybrid tail runs outside them, once.
+    Under ``hopper`` in bf16 the backward of each linear (each expert-
+    batched one too) is two more launches of kernel A, dX and dW, once per
+    step; the fp8 and 2:4 entries differentiate the torch reference. The
+    LM head once per CE chunk, on kernel A in bf16 whatever the policy;
+    its f32 cotangent takes the f32 reference's products in backward.
+    Under ``hopper_sparse24`` every linear is kernel D, a MoE layer's
+    experts one launch each."""
     from repro_torch.models.transformer import layer_kinds
     from repro_torch.runtime import train_loop as tl
     remat = 2 if cfg.remat in ("full", "dots") else 1
     n_stack = cfg.num_superlayers * len(cfg.superlayer_pattern)
-    backend = spec.split(":")[2]
+    precision, _, backend = spec.split(":")
+    grads = 2 if (backend, precision) == ("hopper", "bf16") else 0
     linears = batched = 0
     for i, kind in enumerate(layer_kinds(cfg)):
         runs = remat if i < n_stack else 1
@@ -4084,8 +4088,8 @@ def train_launches_expected(cfg, spec: str, steps: int,
             if backend == "hopper_sparse24":
                 n += 3 * (cfg.num_experts - 1)
             else:
-                batched += 3 * runs
-        linears += n * runs
+                batched += 3 * (runs + grads)
+        linears += n * (runs + grads)
     head = 2 * (seq // min(tl.CE_CHUNK, seq))
     want = {"gemm": 0, "flash_attention": 0, "paged_attention": 0,
             "sparse24_gemm": 0, "block24_gemm": 0}
@@ -4775,12 +4779,12 @@ def train_expert_rows(cfg, tokens):
     """``registry.hopper_experts`` (kernel A's expert-batched launch) at
     the expert shapes of a training step of ``tokens`` tokens, forward and
     backward under autograd, against the ``torch`` backend's per-expert path
-    (the plain version, whose gradient the hopper entry's backward
-    differentiates): the output and both operand gradients within GEMM_REL_TOL,
-    one launch per forward, a bit-equal repeat. Timed: the reference backward
-    (the loop of one f32 GEMM per expert) per call, by CUDA events with the
-    host's gaps in; at the gate/up shape (the kernels line's row) also the
-    kernel with its bound and ``torch.bmm``."""
+    (autograd through the f32 reference): the output and both operand
+    gradients within GEMM_REL_TOL, three launches (the forward, and dX and
+    dW in backward), a bit-equal repeat. Timed: the backward (two batched
+    launches and the operands' transposes) per call, by CUDA events with
+    the host's gaps in; at the gate/up shape (the kernels line's row) also
+    the kernel with its bound and ``torch.bmm``."""
     import torch
     from repro_torch.core import execution as ex
     from repro_torch.kernels import fp8_matmul as fm
@@ -4802,8 +4806,8 @@ def train_expert_rows(cfg, tokens):
         xh, wh = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
         before = fm.BATCHED_LAUNCHES
         out = registry.hopper_experts(xh, wh)
-        launched = fm.BATCHED_LAUNCHES - before
         dx, dw = torch.autograd.grad(out, (xh, wh), g, retain_graph=True)
+        launched = fm.BATCHED_LAUNCHES - before
         with torch.no_grad():
             again = registry.hopper_experts(x, w)
         xp, wp = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
@@ -4814,18 +4818,17 @@ def train_expert_rows(cfg, tokens):
                            ("dw", dw, rdw)):
             errs[name] = (a.float() - b.float()).abs().max().item()
             rels[name] = errs[name] / max(b.float().abs().max().item(), 1e-30)
-        grads_equal = bit_equal(dx, rdx) and bit_equal(dw, rdw)
         same = bit_equal(out.detach(), again)
-        ok = launched == 1 and same and bool(torch.isfinite(out).all()) \
+        ok = launched == 3 and same and bool(torch.isfinite(out).all()) \
             and max(rels.values()) <= GEMM_REL_TOL["bfloat16"]
         plan = plan_note(M, N, K, "gemm", E)
         print(f"[train-blocks] hopper_experts {label} E={E} M={M} K={K} "
               f"N={N} bf16 under autograd against the torch backend's "
               f"per-expert path: rel out {rels['out']:.2e}, dx "
               f"{rels['dx']:.2e}, dw {rels['dw']:.2e} (tol "
-              f"{GEMM_REL_TOL['bfloat16']}); gradients bit-equal "
-              f"{grads_equal}; {launched} launch per forward; repeat "
-              f"bit-equal={same}; plan {plan} {'ok' if ok else 'MISMATCH'}",
+              f"{GEMM_REL_TOL['bfloat16']}); {launched} launches forward "
+              f"and backward; repeat bit-equal={same}; plan {plan} "
+              f"{'ok' if ok else 'MISMATCH'}",
               flush=True)
         if not ok:
             fail(f"hopper_experts {label} under autograd: rel {rels}, "
@@ -4836,9 +4839,9 @@ def train_expert_rows(cfg, tokens):
         row = {"label": label, "E": E, "M": M, "K": K, "N": N,
                "type": "bf16", "out": "bfloat16", "max_abs_err": errs["out"],
                "grad_rel": {"dx": rels["dx"], "dw": rels["dw"]},
-               "grads_bit_equal": grads_equal, "plan": plan,
-               "reference_backward_ms": backward_ms,
-               "reference_backward_timer": "cuda events, host gaps in"}
+               "plan": plan,
+               "backward_ms": backward_ms,
+               "backward_timer": "cuda events, host gaps in"}
         if label == "train_moe_gate_up":
             ms, copies, timer = cold_ms(
                 lambda a, b: fm.fp8_matmul_batched(a, b, bf16), (x, w), 20)
@@ -5344,10 +5347,10 @@ def train_blocks_phase():
             "seconds": time.perf_counter() - t0, "seconds_by_part": spent}
         summary[arch]["arms"][hop_tag]["profile"] = arms[hop_tag]["profile"]
         if cfg.num_experts:
-            # one reference backward per expert GEMM per step: gate and up,
-            # then down, in each MoE layer
-            per = {r["label"]: r["reference_backward_ms"] for r in rows}
-            summary[arch]["expert_reference_backward_ms"] = {
+            # one backward per expert GEMM per step: gate and up, then
+            # down, in each MoE layer
+            per = {r["label"]: r["backward_ms"] for r in rows}
+            summary[arch]["expert_backward_ms"] = {
                 **per, "per_step": cfg.num_layers * (
                     2 * per["train_moe_gate_up"] + per["train_moe_down"])}
         print(f"[train-blocks] {arch}: {summary[arch]['seconds']:.1f}s ("

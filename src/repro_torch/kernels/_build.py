@@ -160,7 +160,7 @@ def refuse_grad(what: str, *tensors) -> None:
         raise RuntimeError(
             f"{what} has no backward: autograd through a kernel entry point "
             "is refused (differentiate through the registry's entries, "
-            "which run the kernel forward and the torch reference backward)")
+            "which run the kernel inside an autograd Function)")
 
 
 # The dry-run's cost recorder (``launch/dryrun.py``), called as

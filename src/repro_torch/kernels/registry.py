@@ -175,10 +175,21 @@ register_backend(MatmulBackend(
 # ---------------------------------------------------------------------------
 # hopper — the hand-written CUDA GEMM.
 #
-# The kernel has no backward, so each entry runs it forward inside an
-# autograd Function whose backward differentiates the numerically
-# equivalent torch reference, as the JAX backend's custom_vjp does.
+# The kernels have no backward of their own. The bf16 linear and expert
+# entries run kernel A forward inside :class:`_KernelLinear`, whose backward
+# takes the two gradient products directly; the fp8 and 2:4 entries run
+# their kernel forward inside :class:`_FwdWithRefGrad`, whose backward
+# differentiates the numerically equivalent torch reference, as the JAX
+# backend's custom_vjp does.
 # ---------------------------------------------------------------------------
+
+# Backward calls of the differentiable entries since the last reset, by
+# path: "kernel" takes both gradient products on kernel A (cotangent and
+# operands all bf16); "reference" on the torch reference's f32 products (an
+# f32 cotangent or operand, and the fp8 and 2:4 entries). A traced training
+# step puts its deltas in its backward phase (``runtime/train_loop``).
+BACKWARD_PATHS = {"kernel": 0, "reference": 0}
+
 
 class _FwdWithRefGrad(torch.autograd.Function):
     @staticmethod
@@ -189,6 +200,7 @@ class _FwdWithRefGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        BACKWARD_PATHS["reference"] += 1
         ops = [o.detach().requires_grad_(o.requires_grad)
                for o in ctx.saved_tensors]
         wants = [o for o in ops if o.requires_grad]
@@ -206,6 +218,81 @@ def _fwd_with_ref_grad(kernel_fn: Callable, ref_fn: Callable, *operands):
     return kernel_fn(*operands)
 
 
+def _col_major(t: torch.Tensor) -> bool:
+    return t.stride(0) == 1 and t.stride(1) == t.shape[0]
+
+
+def _f32_mm_grads(g, a, b, need_a: bool, need_b: bool):
+    """The gradients of ``torch.matmul(a.float(), b.float())`` (2-D) at the
+    cotangent ``g``, each in its operand's dtype: the f32 products autograd
+    takes through that reference, call for call (a column-major operand
+    gets its gradient column-major, as ``mm``'s backward gives it), so
+    they are bit-equal to differentiating it, with no forward run again."""
+    g, af, bf = g.float(), a.float(), b.float()
+    da = db = None
+    if need_a:
+        da = (bf.mm(g.t()).t() if _col_major(af)
+              else g.mm(bf.t())).to(a.dtype)
+    if need_b:
+        db = (g.t().mm(af).t() if _col_major(bf)
+              else af.t().mm(g)).to(b.dtype)
+    return da, db
+
+
+def _kernel_grads(g, x, w, need_x: bool, need_w: bool):
+    """dX = g · wᵀ and dW = xᵀ · g on kernel A in bf16, each one launch
+    (one expert-batched launch for (E, M, K) × (E, K, N) operands); the
+    transposed operands are made contiguous, as the kernel takes them."""
+    g = g.contiguous()
+    if x.dim() == 3:
+        mm, t = fm.fp8_matmul_batched, lambda u: u.transpose(1, 2)
+    else:
+        mm, t = fm.fp8_matmul, torch.t
+    dx = mm(g, t(w).contiguous(), torch.bfloat16) if need_x else None
+    dw = mm(t(x).contiguous(), g, torch.bfloat16) if need_w else None
+    return dx, dw
+
+
+class _KernelLinear(torch.autograd.Function):
+    """``x @ w`` on kernel A forward (2-D, or (E, M, K) × (E, K, N) with
+    one product per expert), differentiated by the two gradient products
+    themselves. With the cotangent and both operands in bf16 each product
+    is kernel A's (every product of bf16 values is exact in f32 and every
+    sum an f32 sum, as in the reference's f32 products; only the order of
+    the sums differs, as in the forward). Otherwise (an f32 cotangent, as
+    the LM head's f32 logits give, or an f32 operand) they are the f32
+    reference's own products (:func:`_f32_mm_grads`), since rounding an f32
+    cotangent to bf16 would lose what the reference keeps."""
+    @staticmethod
+    def forward(ctx, kernel_fn, x, w):
+        ctx.save_for_backward(x, w)
+        return kernel_fn(x, w)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[1:]
+        if g.dtype == x.dtype == w.dtype == torch.bfloat16:
+            BACKWARD_PATHS["kernel"] += 1
+            return (None, *_kernel_grads(g, x, w, need_x, need_w))
+        BACKWARD_PATHS["reference"] += 1
+        if x.dim() == 2:
+            return (None, *_f32_mm_grads(g, x, w, need_x, need_w))
+        dx, dw = zip(*(_f32_mm_grads(g[e], x[e], w[e], need_x, need_w)
+                       for e in range(x.shape[0])))
+        return (None, torch.stack(dx) if need_x else None,
+                torch.stack(dw) if need_w else None)
+
+
+def _kernel_linear(kernel_fn: Callable, x, w):
+    """Run ``kernel_fn(x, w)`` (= ``x @ w``); differentiate by
+    :class:`_KernelLinear`."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _KernelLinear.apply(kernel_fn, x, w)
+    return kernel_fn(x, w)
+
+
 def _gemm(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
     return fm.fp8_matmul(a.contiguous(), b.contiguous(), out_dtype)
 
@@ -213,9 +300,7 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
 def _hopper_dense(x, w, *, out_dtype=torch.bfloat16, bm=None, bn=None,
                   bk=None):
     x2, lead = _flatten_lead(x)
-    out = _fwd_with_ref_grad(
-        lambda a, b: _gemm(a, b, out_dtype),
-        lambda a, b: _torch_dense(a, b, out_dtype=out_dtype), x2, w)
+    out = _kernel_linear(lambda a, b: _gemm(a, b, out_dtype), x2, w)
     return out.reshape(*lead, w.shape[-1])
 
 
@@ -240,20 +325,23 @@ def hopper_experts(x, w, *, precision: str = "bf16",
     vmapped over the experts (one ``pallas_call`` with an extra grid axis).
     Under fp8 each expert's activation rows and weight get their own amax
     and scale, as ``hopper.fp8`` gives each expert called alone
-    (:func:`fp8lib.quantize_stack`)."""
+    (:func:`fp8lib.quantize_stack`), and backward differentiates the
+    per-expert reference. In bf16, backward is two more expert-batched
+    launches (dX and dW, :class:`_KernelLinear`)."""
+    if precision != "fp8":
+        return _kernel_linear(lambda a, b: fm.fp8_matmul_batched(
+            a.contiguous(), b.contiguous(), out_dtype), x, w)
+
     def kernel(a, b):
-        if precision != "fp8":
-            return fm.fp8_matmul_batched(a.contiguous(), b.contiguous(),
-                                         out_dtype)
         aq, ainv = fp8lib.quantize_stack(a)
         bq, binv = fp8lib.quantize_stack(b)
         acc = fm.fp8_matmul_batched(aq, bq, torch.float32)
         return (acc * (ainv * binv)[:, None, None]).to(out_dtype)
 
-    one = _torch_fp8 if precision == "fp8" else _torch_dense
     return _fwd_with_ref_grad(
         kernel, lambda a, b: torch.stack(
-            [one(a[e], b[e], out_dtype=out_dtype) for e in range(a.shape[0])]),
+            [_torch_fp8(a[e], b[e], out_dtype=out_dtype)
+             for e in range(a.shape[0])]),
         x, w)
 
 

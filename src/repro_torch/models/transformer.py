@@ -282,7 +282,7 @@ def _remat(body, cfg: ArchConfig):
       ``aten.addmm``, the linears' 2-D products, and recomputing the rest
       (the reference's ``dots_with_no_batch_dims_saveable``: batched
       products, attention's and the MoE's, are recomputed). Under a kernel
-      backend the GEMM launch sits inside ``_FwdWithRefGrad``
+      backend the GEMM launch sits inside an autograd ``Function``
       (``kernels/registry.py``), which the dispatcher never sees as a
       product, so it is recomputed: kernel A still launches twice per
       linear, as a ``pallas_call`` is no dot to the reference's policy.

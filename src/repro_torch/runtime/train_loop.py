@@ -12,12 +12,14 @@ of ``ndim >= 2`` leaves, int8 compression's per-tensor scale) the step
 applies it to the stack (``transformer.reference_leaves``).
 
 Under a kernel backend each linear runs its kernel forward inside an
-autograd ``Function`` whose backward goes through the torch reference
-(``kernels/registry.py``), as the reference's ``custom_vjp`` does. The
-stack's super-layers (``cfg.remat == "full"``) and each chunk of the
-fused head and CE are checkpointed, so their forward runs again in
-backward: each kernel launch of a checkpointed region happens twice per
-step.
+autograd ``Function`` (``kernels/registry.py``), as the reference's
+``custom_vjp`` does: a bf16 linear's backward is two more launches of
+kernel A (dX and dW), one with an f32 cotangent (the LM head's) takes the
+f32 reference's two products, and the fp8 and 2:4 entries differentiate
+the torch reference. The stack's super-layers (``cfg.remat == "full"``)
+and each chunk of the fused head and CE are checkpointed, so their
+forward runs again in backward: each forward kernel launch of a
+checkpointed region happens twice per step.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import execution as ex
 from repro_torch.core import tree
+from repro_torch.kernels import registry
 from repro_torch.models.layers import DEFAULT_RT, RuntimeCfg, lm_logits
 from repro_torch.models.transformer import forward_hidden, reference_leaves
 from repro_torch.optim import adamw
@@ -119,7 +122,9 @@ def value_and_grad(loss_fn):
     loss does not reach gets zeros, as in JAX. An ambient tracer that
     records phases (``telemetry.set_tracer``) gets a
     ``train_step.forward`` and a ``train_step.backward`` span per call,
-    timed on the device on a card."""
+    timed on the device on a card; the backward's ``meta`` holds its
+    ``backward_paths``, the calls of each path of the kernels' autograd
+    entries (``registry.BACKWARD_PATHS``) it made."""
     def fn(params, batch):
         flat = tree.leaves(params)
         diff = [p.detach().requires_grad_(True) for p in flat]
@@ -130,8 +135,14 @@ def value_and_grad(loss_fn):
             with tm.phase(tr, "train_step.forward", device_time=on_card):
                 loss, metrics = loss_fn(
                     tree.map_tree(lambda _: next(it), params), batch)
-            with tm.phase(tr, "train_step.backward", device_time=on_card):
+            with tm.phase(tr, "train_step.backward",
+                          device_time=on_card) as span:
+                before = dict(registry.BACKWARD_PATHS)
                 grads = torch.autograd.grad(loss, diff, allow_unused=True)
+                if span is not None:
+                    span.fields.setdefault("meta", {})["backward_paths"] = {
+                        k: n - before[k]
+                        for k, n in registry.BACKWARD_PATHS.items()}
         grads = iter([torch.zeros_like(p) if g is None else g
                       for p, g in zip(flat, grads)])
         metrics = {k: v.detach() for k, v in metrics.items()}

@@ -121,11 +121,11 @@ TRAIN_EXPERT_SHAPES = [(40, 512, 1536, 512), (40, 512, 512, 1536)]
 def test_cuda_expert_matmul_under_autograd_matches_the_torch_path(e, m, k,
                                                                    n):
     """``registry.hopper_experts`` forward (one launch of kernel A) and
-    backward (the reference's per-expert gradient) at the training
-    shapes, against the ``torch`` backend's per-expert path: the output
-    within kernel A's bf16 tolerance, both operand gradients too (the
-    same torch code on the same operands and cotangent), and a repeat of
-    the forward and backward bit-equal."""
+    backward (two more: dX = g·wᵀ and dW = xᵀ·g, each batched over the
+    experts) at the training shapes, against the ``torch`` backend's
+    per-expert path (autograd through the f32 reference): the output and
+    both operand gradients within kernel A's bf16 tolerance, and a repeat
+    of the forward and backward bit-equal."""
     from repro_torch.kernels import registry
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -140,7 +140,7 @@ def test_cuda_expert_matmul_under_autograd_matches_the_torch_path(e, m, k,
         return (out.detach(), *torch.autograd.grad(out, (a, b), g))
     before = fm.BATCHED_LAUNCHES
     got = run(registry.hopper_experts)
-    assert fm.BATCHED_LAUNCHES == before + 1
+    assert fm.BATCHED_LAUNCHES == before + 3
     want = run(lambda a, b: tex.matmul_experts(
         a, b, tex.parse_policy("bf16:dense:torch")))
     for a, b in zip(got, want):
@@ -202,6 +202,42 @@ def test_cuda_top1_expert_gemm_matches_plain(e, m, k, n):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype == torch.bfloat16
         assert _rel(a, b) <= GEMM_REL_TOL[torch.bfloat16]
+
+
+# chameleon-34b's linears in a train step at B=4, S=512 (2048 rows, d 8192):
+# q/o, k/v, gate/up, and down (K = 22016)
+CHAMELEON_TRAIN_SHAPES = [(2048, 8192, 8192), (2048, 8192, 1024),
+                          (2048, 8192, 22016), (2048, 22016, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", CHAMELEON_TRAIN_SHAPES)
+def test_cuda_linear_backward_on_kernel_a_matches_the_reference(m, k, n):
+    """The hopper dense entry forward and backward (dX = g·wᵀ and dW =
+    xᵀ·g on kernel A: three launches in all) at chameleon-34b's training
+    shapes, against the ``torch`` backend (autograd through the f32
+    reference): the output and both gradients within GEMM_REL_TOL, and a
+    repeat of the forward and backward bit-equal."""
+    from repro_torch.kernels import registry
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((k, n), generator=gen, device="cuda")
+         * k ** -0.5).bfloat16()
+    g = torch.randn((m, n), generator=gen, device="cuda").bfloat16()
+
+    def run(backend):
+        a, b = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        out = registry.get_backend(backend).dense(a, b)
+        return (out.detach(), *torch.autograd.grad(out, (a, b), g))
+    before = fm.LAUNCHES
+    got = run("hopper")
+    assert fm.LAUNCHES == before + 3
+    want = run("torch")
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+        assert _rel(a, b) <= GEMM_REL_TOL[torch.bfloat16]
+    assert all(_same_bits(a, b) for a, b in zip(got, run("hopper")))
 
 
 # llama3-405b's down projection at decode and at a 128-token prefill (K =

@@ -276,19 +276,21 @@ def test_unsupported_layouts_are_listed_not_hidden():
 def test_kernel_backends_are_costed_on_one_device():
     """Under ``hopper`` the meta kernels are costed as kernel A (2·M·N·K,
     its operands and result once): each linear twice per step under
-    ``remat="full"``, the head twice per CE chunk; on a mesh of several
-    devices the variant is refused with its reason."""
+    ``remat="full"`` and its two gradient products once (dX and dW, each
+    the forward's operations), the head twice per CE chunk (its f32
+    backward is the library's); on a mesh of several devices the variant
+    is refused with its reason."""
     cfg = layers("llama3-8b", 2)
     rec = perf.run_variant("llama3-8b", TRAIN.name, "baseline",
                            backend="hopper", mesh=mesh1(), cfg=cfg,
                            shape=TRAIN, with_layer=False)
     assert rec["ok"], rec.get("error")
     gemm = rec["kernels"]["gemm"]
-    assert gemm["launches"] == 2 * 7 * cfg.num_layers + 2
+    assert gemm["launches"] == 4 * 7 * cfg.num_layers + 2
     B, S, d = TRAIN.global_batch, TRAIN.seq_len, cfg.d_model
     lin = 2 * B * S * d * (2 * cfg.q_dim + 2 * cfg.kv_dim + 3 * cfg.d_ff)
-    assert gemm["flops"] == 2 * (cfg.num_layers * lin
-                                 + 2 * B * S * d * cfg.padded_vocab)
+    assert gemm["flops"] == 4 * cfg.num_layers * lin \
+        + 2 * 2 * B * S * d * cfg.padded_vocab
     rec = perf.run_variant("llama3-8b", TRAIN.name, "baseline",
                            backend="hopper", mesh=mesh24(), cfg=cfg,
                            shape=TRAIN, with_layer=False)

@@ -167,6 +167,183 @@ def test_hopper_backward_runs_the_reference():
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+# -- the autograd entries' backward ---------------------------------------------
+
+def _normal(shape, seed, dtype):
+    a = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return torch.from_numpy(a).to(dtype)
+
+
+def _grads(fn, x, w, g, wants):
+    """``fn(x, w)`` and the gradients of the operands named in ``wants``
+    at the cotangent ``g``, with the backward path counter's deltas."""
+    a = x.clone().requires_grad_("x" in wants)
+    b = w.clone().requires_grad_("w" in wants)
+    out = fn(a, b)
+    before = dict(registry.BACKWARD_PATHS)
+    grads = torch.autograd.grad(out, [t for t in (a, b) if t.requires_grad],
+                                g)
+    paths = {k: n - before[k] for k, n in registry.BACKWARD_PATHS.items()}
+    return out.detach(), grads, paths
+
+
+def _torch_path(experts, out_dtype=torch.bfloat16):
+    """The torch backend's product: autograd through the f32 reference."""
+    one = registry.get_backend("torch").dense
+    if not experts:
+        return lambda a, b: one(a, b, out_dtype=out_dtype)
+    return lambda a, b: torch.stack([one(a[e], b[e], out_dtype=out_dtype)
+                                     for e in range(a.shape[0])])
+
+
+def _before_its_own_backward(experts, out_dtype):
+    """The hopper entry as it was before it had a backward of its own: the
+    kernel forward, autograd through the f32 reference run again."""
+    ref = _torch_path(experts, out_dtype)
+    if experts:
+        return lambda a, b: registry._fwd_with_ref_grad(
+            lambda p, q: fm.fp8_matmul_batched(p, q, out_dtype), ref, a, b)
+
+    def fn(a, b):
+        a2 = a.reshape(-1, a.shape[-1])
+        return registry._fwd_with_ref_grad(
+            lambda p, q: fm.fp8_matmul(p, q, out_dtype), ref, a2,
+            b).reshape(*a.shape[:-1], b.shape[-1])
+    return fn
+
+
+def _hopper_entry(experts, out_dtype=torch.bfloat16):
+    if experts:
+        return lambda a, b: registry.hopper_experts(a, b, out_dtype=out_dtype)
+    be = registry.get_backend("hopper")
+    return lambda a, b: be.dense(a, b, out_dtype=out_dtype)
+
+
+# (x shape, w shape, operands that want a gradient, cotangent transposed)
+BF16_BACKWARD_CASES = [
+    ((64, 48), (48, 80), "xw", False),
+    ((2, 5, 48), (48, 40), "xw", False),            # 3-D x, flattened
+    ((13, 7), (7, 5), "xw", False),                 # ragged
+    ((13, 24), (24, 40), "x", False),
+    ((13, 24), (24, 40), "w", False),
+    ((24, 16), (16, 40), "xw", True),               # non-contiguous g
+    ((4, 32, 48), (4, 48, 24), "xw", False),        # expert-batched
+    ((3, 7, 13), (3, 13, 5), "xw", False),          # experts, ragged
+    ((4, 16, 24), (4, 24, 32), "x", True),
+    ((4, 16, 24), (4, 24, 32), "w", False),
+]
+
+
+@pytest.mark.parametrize("xs,ws,wants,g_t", BF16_BACKWARD_CASES)
+def test_bf16_backward_is_two_kernel_products(monkeypatch, xs, ws, wants,
+                                              g_t):
+    """A bf16 linear (and an expert-batched one) with a bf16 cotangent:
+    backward is one kernel-A call per operand that wants a gradient (dX =
+    g·wᵀ, dW = xᵀ·g; one batched call each for experts), counted on the
+    kernel path, the gradients within one bf16 ulp of the largest entry of
+    autograd's through the f32 reference."""
+    experts = len(ws) == 3
+    x, w = _normal(xs, 40, torch.bfloat16), _normal(ws, 41, torch.bfloat16)
+    out_shape = (*xs[:-1], ws[-1])
+    g = _normal(out_shape[:-2] + out_shape[:-3:-1], 42,
+                torch.bfloat16).transpose(-1, -2) if g_t \
+        else _normal(out_shape, 42, torch.bfloat16)
+    assert g.is_contiguous() != g_t
+    name = "fp8_matmul_batched" if experts else "fp8_matmul"
+    calls, real = [], getattr(fm, name)
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+    monkeypatch.setattr(fm, name, counted)
+    out, grads, paths = _grads(_hopper_entry(experts), x, w, g, wants)
+    monkeypatch.undo()
+    assert len(calls) == 1 + len(wants)
+    assert paths == {"kernel": 1, "reference": 0}
+    want_out, want, _ = _grads(_torch_path(experts), x, w, g, wants)
+    assert torch.equal(out, want_out)
+    for got, ref, op in zip(grads, want, wants):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape, op
+        ulp = 2.0 ** -7 * float(ref.float().abs().max())
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=ulp, msg=op)
+
+
+# (experts, operand dtype, output dtype): an f32 cotangent (the LM head's
+# bf16 operands to f32 logits) or f32 operands
+F32_BACKWARD_CASES = [
+    (False, torch.bfloat16, torch.float32),
+    (False, torch.float32, torch.float32),
+    (False, torch.float32, torch.bfloat16),
+    (True, torch.bfloat16, torch.float32),
+    (True, torch.float32, torch.float32),
+]
+
+
+@pytest.mark.parametrize("experts,dtype,out_dtype", F32_BACKWARD_CASES)
+@pytest.mark.parametrize("wants", ["xw", "x", "w"])
+def test_f32_backward_is_bit_equal_to_the_reference_run_again(
+        experts, dtype, out_dtype, wants):
+    """An f32 cotangent or an f32 operand keeps the f32 reference's
+    products, now taken directly: bit-equal to differentiating the
+    reference run again, counted on the reference path, and no kernel
+    call in backward."""
+    xs, ws = ((3, 9, 24), (3, 24, 16)) if experts else ((2, 9, 24), (24, 16))
+    x, w = _normal(xs, 43, dtype), _normal(ws, 44, dtype)
+    g = _normal((*xs[:-1], ws[-1]), 45, out_dtype)
+    out, grads, paths = _grads(_hopper_entry(experts, out_dtype), x, w, g,
+                               wants)
+    assert paths == {"kernel": 0, "reference": 1}
+    want_out, want, _ = _grads(_before_its_own_backward(experts, out_dtype),
+                               x, w, g, wants)
+    assert torch.equal(out, want_out)
+    assert all(a.dtype == b.dtype == dtype and torch.equal(a, b)
+               for a, b in zip(grads, want))
+
+
+def test_f32_backward_keeps_a_column_major_operand_bit_equal():
+    """A column-major weight: autograd's mm backward takes its gradient by
+    the transposed product; the direct products do the same."""
+    x = _normal((6, 10), 46, torch.float32)
+    w = _normal((8, 10), 47, torch.float32).t()
+    g = _normal((6, 8), 48, torch.float32)
+    _, grads, _ = _grads(_hopper_entry(False, torch.float32), x, w, g, "xw")
+    _, want, _ = _grads(_before_its_own_backward(False, torch.float32), x,
+                        w, g, "xw")
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+
+@pytest.mark.parametrize("entry", ["fp8", "fp8_experts", "sparse24"])
+def test_fp8_and_sparse24_backward_differentiate_the_reference(entry):
+    """The fp8 and 2:4 entries keep autograd through their reference: the
+    gradients bit-equal to the torch backend's, counted on the reference
+    path."""
+    x = _normal((4, 8, 32), 49, torch.bfloat16)
+    hopper, torch_be = (registry.get_backend(n) for n in ("hopper", "torch"))
+    if entry == "sparse24":
+        v, m = tsp.pack_24(tsp.prune_24(_normal((32, 16), 50,
+                                                torch.bfloat16)))
+        fns = [lambda a, b, be=be: be.sparse24(a, v, m) for be in
+               (hopper, torch_be)]
+        wants = "x"
+    elif entry == "fp8":
+        fns = [lambda a, b, be=be: be.fp8(a, b) for be in (hopper, torch_be)]
+        wants = "xw"
+    else:
+        fns = [lambda a, b: registry.hopper_experts(a, b, precision="fp8"),
+               lambda a, b: torch.stack([torch_be.fp8(a[e], b[e])
+                                         for e in range(a.shape[0])])]
+        wants = "xw"
+    w = _normal((4, 32, 16) if entry == "fp8_experts" else (32, 16), 51,
+                torch.bfloat16)
+    g = _normal((4, 8, 16), 52, torch.bfloat16)
+    (out, grads, paths), (want_out, want, _) = (
+        _grads(fn, x, w, g, wants) for fn in fns)
+    assert paths == {"kernel": 0, "reference": 1}
+    assert torch.equal(out, want_out)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+
 @pytest.mark.parametrize("dtype", FP8)
 def test_ops_fp8_matmul_dynamic_matches_jax(dtype):
     rng = np.random.default_rng(9)

@@ -208,6 +208,28 @@ def test_train_step_records_its_phases_per_step_and_chunk(microbatch,
                            "train_step.optimizer": 2}
 
 
+@pytest.mark.parametrize("spec,kernel,reference", [
+    ("bf16:dense:hopper", "linears", "head"),
+    ("fp8:dense:hopper", 0, "linears+head"),
+    ("bf16:dense:torch", 0, 0)])
+def test_backward_phase_counts_each_backward_path(spec, kernel, reference):
+    """The backward phase's meta holds the step's calls of each path of
+    the kernels' autograd entries: a bf16 linear's backward is kernel A's
+    (one per linear), the LM head's f32 cotangent takes the reference's
+    products (one per CE chunk), fp8 linears differentiate the reference,
+    and the torch backend has no such entry."""
+    tr = tm.Tracer(phases=True)
+    opt, state, batch = _train_state()
+    step = tl.make_train_step(CFG, opt, RuntimeCfg(),
+                              policy=ex.parse_policy(spec), telemetry=tr)
+    step(state, batch)
+    n = {0: 0, "linears": 7 * CFG.num_layers, "head": 1,
+         "linears+head": 7 * CFG.num_layers + 1}
+    (ev,) = tr.events("train_step.backward")
+    assert ev.meta["backward_paths"] == {"kernel": n[kernel],
+                                         "reference": n[reference]}
+
+
 def test_train_step_without_phases_records_one_span_a_step():
     tr = tm.Tracer()
     opt, state, batch = _train_state()

@@ -38,10 +38,10 @@ def test_three_steps_match_jax(case, dtype):
 
 
 @pytest.mark.parametrize("spec,want_a,want_d,seq", [
-    ("bf16:dense:hopper", "dense", 0, 64),
-    ("bf16:dense:hopper", "dense", 0, 1024),     # two CE chunks
+    ("bf16:dense:hopper", "bf16", 0, 64),
+    ("bf16:dense:hopper", "bf16", 0, 1024),      # two CE chunks
     ("fp8:dense:hopper", "dense", 0, 64),
-    ("bf16:sparse24:hopper", "dense", 0, 64),
+    ("bf16:sparse24:hopper", "bf16", 0, 64),
     ("bf16:dense:hopper_sparse24", "head", "linears", 64),
     ("bf16:dense:hopper_sparse24", "head", "linears", 1024),
     ("bf16:dense:torch", 0, 0, 64)])
@@ -50,8 +50,10 @@ def test_kernel_calls_per_step_follow_the_remat_rule(monkeypatch, spec,
     """The rule the card's launch check holds the train step to: with the
     super-layers and each CE chunk checkpointed, each linear's kernel runs
     twice per step (forward, and again in backward), the head twice per
-    CE chunk; backward itself launches none. Counted here as calls of the
-    kernel wrappers, which launch once per call on the card."""
+    CE chunk. A bf16 linear's backward is two more calls of kernel A (dX
+    and dW); the fp8 and 2:4 entries' backward and the head's f32 one call
+    no kernel. Counted here as calls of the kernel wrappers, which launch
+    once per call on the card."""
     from repro_torch.core import execution as tex
     from repro_torch.kernels import fp8_matmul as tfm
     from repro_torch.kernels import sparse24_matmul as tsm
@@ -74,5 +76,6 @@ def test_kernel_calls_per_step_follow_the_remat_rule(monkeypatch, spec,
     step(state, {"inputs": tokens, "labels": tokens})
     linears = 2 * 7 * cfg.num_layers
     head = 2 * (seq // min(ttl.CE_CHUNK, seq))
-    n = {"dense": linears + head, "head": head, "linears": linears, 0: 0}
+    n = {"dense": linears + head, "bf16": 2 * linears + head, "head": head,
+         "linears": linears, 0: 0}
     assert calls == {"A": n[want_a], "D": n[want_d]}
